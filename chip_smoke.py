@@ -27,7 +27,22 @@ Phases (any failed check exits non-zero before the result line):
              the two paths, and the card's ``HostExecutor`` outputs must be
              finite, of the served shape, and within 1e-4 of the port on
              the CPU for the same seed.
-5. summary — one ``{"kernels": [...]}`` line, then the result line
+5. din     — builds the DIN recsys stack of ``repro_torch.launch.
+             recsys_din --config din`` (10M-row item table placed through
+             the tiered store). Kernel checks first: ``embedding_bag`` at
+             the inputs ``din_forward`` hands it (captured at ``serve_p99``
+             and at one ``retrieval_cand`` chunk; sum and mean, with and
+             without weights, fp32 and bf16; all-padding bags, ids past the
+             table, empty grids) must be bitwise equal to its plain
+             version; kernel, plain version and ``F.embedding_bag`` on the
+             compacted valid ids are timed. Then it serves
+             ``DIN_BATCHES`` batches of 512 with the counter zeroed just
+             before and read just after (exactly 2 launches a batch),
+             checks the store path bitwise equal to the direct-table path
+             and within 1e-4 of the port on the CPU, and scores 1,000,000
+             candidates for one user (exactly 2 launches per chunk of
+             31,250; finite; the first 4,096 within 1e-4 of the CPU port).
+6. summary — one ``{"kernels": [...]}`` line, then the result line
              ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
@@ -41,6 +56,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SERVE_REQUESTS = 200
+DIN_BATCHES = 8
+DIN_CANDIDATES = 1_000_000
+DIN_CPU_CANDIDATES = 4096  # retrieval scores held against the CPU port
 CPU_TOL = 1e-4            # card vs CPU model outputs (fp32, other sum order)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
@@ -371,6 +389,244 @@ def serve_phase(results: list[dict], stack, fanouts, gen_seeds) -> None:
         f"(max |diff| {worst:.3g})")
 
 
+# ---------------------------------------------------------------------------
+# phase 5
+# ---------------------------------------------------------------------------
+def capture_din_inputs(stack):
+    """The exact ``embedding_bag`` calls ``din_forward`` makes for one
+    ``serve_p99`` batch and for one ``retrieval_cand`` chunk: two each
+    (the weighted interest sum, then the history mean)."""
+    from repro_torch.configs.din import RETRIEVAL_CHUNK
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
+    from repro_torch.launch import recsys_din
+    original = bag_ops.embedding_bag
+    calls = []
+
+    def wrapped(*args, **kwargs):
+        calls.append((args, kwargs))
+        return original(*args, **kwargs)
+
+    bag_ops.embedding_bag = wrapped
+    try:
+        batch = recsys_din.draw_batch(stack)
+        recsys_din.score_batch(stack, batch)
+        recsys_din.score_candidates(stack, batch, RETRIEVAL_CHUNK)
+    finally:
+        bag_ops.embedding_bag = original
+    check(len(calls) == 4, f"din_forward made {len(calls)} embedding_bag "
+          "calls for one batch and one chunk, not 2 + 2")
+    return {"serve_p99": calls[:2], "retrieval_cand": calls[2:]}
+
+
+def embedding_bag_phase(stack) -> dict:
+    """Bitwise checks and timings of ``embedding_bag`` at the inputs the
+    DIN path hands it; prints one timing row per captured call. Returns
+    the ``kernels`` entry (the serve_p99 interest call)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import embedding_bag as eb
+
+    cap = capture_din_inputs(stack)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    err = 0.0
+
+    def same(got, want, what):
+        nonlocal err
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"embedding_bag != plain ({what})")
+        err = max(err, float((got.float() - want.float()).abs().max()))
+
+    for shape, calls in cap.items():
+        for (table, ids, weights), kw in calls:
+            log(f"embedding_bag {shape} inputs: table={tuple(table.shape)} "
+                f"ids={tuple(ids.shape)} weighted={weights is not None} "
+                f"mode={kw['mode']} valid={int((ids >= 0).sum())}")
+        (table, ids, scores), _ = calls[0]
+        rows, (bsz, bag) = table.shape[0], ids.shape
+        cases = {
+            "din": ids,
+            # padding on purpose: a random half of the slots and whole bags
+            "padded": torch.where(
+                torch.rand(ids.shape, generator=gen, device=dev) < 0.5, ids,
+                -1),
+            "all-padding": torch.full_like(ids, -1),
+            "past-the-table": torch.randint(
+                -2, rows + 50, ids.shape, generator=gen, device=dev,
+                dtype=torch.int32)}
+        cases["padded"][::7] = -1
+        for dtype in (torch.float32, torch.bfloat16):
+            t, w = table.to(dtype), scores.to(dtype)
+            for name, case_ids in cases.items():
+                for mode in ("sum", "mean"):
+                    for weights in (None, w):
+                        got = eb.embedding_bag(t, case_ids, weights,
+                                               mode=mode)
+                        want = eb.embedding_bag_ref(t, case_ids, weights,
+                                                    mode=mode)
+                        same(got, want, f"{shape} {name} {mode} "
+                             f"weighted={weights is not None} {dtype}")
+                        if name == "all-padding":
+                            check(not got.any(),
+                                  "embedding_bag all-padding not zero")
+            before = eb.LAUNCHES.value
+            for b, n_bag, d in ((0, bag, t.shape[1]), (bsz, 0, t.shape[1]),
+                                (bsz, bag, 0)):
+                out = eb.embedding_bag(
+                    t[:, :d].contiguous(),
+                    torch.zeros((b, n_bag), dtype=torch.int32, device=dev),
+                    mode="mean")
+                check(out.shape == (b, d) and not out.any(),
+                      f"embedding_bag empty grid {(b, n_bag, d)} wrong")
+            check(eb.LAUNCHES.value == before,
+                  "embedding_bag empty grid launched")
+    log("embedding_bag == plain bitwise (fp32, bf16; sum, mean; weighted "
+        "and not; din inputs at serve_p99 and retrieval_cand, padded, "
+        "all-padding, ids past the table, empty grids)")
+
+    rows_out = []
+    for shape, calls in cap.items():
+        big = shape == "retrieval_cand"
+        for (table, ids, weights), kw in calls:
+            mode = kw["mode"]
+            bsz, bag = ids.shape
+            d, elem = table.shape[1], table.element_size()
+            valid = ids >= 0
+            n_valid = int(valid.sum())
+            # F.embedding_bag on the valid ids, compacted, with offsets
+            flat = ids[valid].long()
+            offsets = torch.zeros(bsz, dtype=torch.long, device=dev)
+            offsets[1:] = valid.sum(1).cumsum(0)[:-1]
+            psw = weights[valid] if weights is not None else None
+
+            def library(flat=flat, table=table, offsets=offsets, mode=mode,
+                        psw=psw):
+                return F.embedding_bag(flat, table, offsets, mode=mode,
+                                       per_sample_weights=psw)
+
+            kern = eb.embedding_bag_cuda(table, ids, weights, mode=mode)
+            log(f"F.embedding_bag yardstick ({shape} {mode}) max |diff| vs "
+                f"kernel: {float((library() - kern).abs().max()):.3g}")
+            nbytes = (n_valid * d * elem
+                      + bsz * bag * (4 + (elem if weights is not None else 0))
+                      + bsz * d * elem)
+            flops = n_valid * d * (2 if weights is not None else 1)
+            plain_reps = dict(inner=3, reps=5) if big else {}
+            rows_out.append({
+                "shape": shape, "call": ("interest (sum, weighted)"
+                                         if weights is not None
+                                         else "hist_mean (mean)"),
+                "ids": [bsz, bag], "d": d, "valid": n_valid,
+                "ms": time_ms(lambda t=table, i=ids, w=weights, m=mode:
+                              eb.embedding_bag_cuda(t, i, w, mode=m)),
+                "plain_ms": time_ms(lambda t=table, i=ids, w=weights, m=mode:
+                                    eb.embedding_bag_ref(t, i, w, mode=m),
+                                    **plain_reps),
+                "library_ms": time_ms(library),
+                "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                flops / FP32_FLOPS) * 1e3,
+                "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                             >= flops / FP32_FLOPS else "operations"),
+                "bytes": nbytes,
+                "call_ms": time_ms(lambda t=table, i=ids, w=weights, m=mode:
+                                   eb.embedding_bag_cuda(t, i, w, mode=m),
+                                   graph=False)})
+    for r in rows_out:
+        log(f"embedding_bag {r['shape']} {r['call']}: kernel {r['ms']:.5f} "
+            f"ms, plain {r['plain_ms']:.5f} ms, library "
+            f"{r['library_ms']:.5f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bytes']} bytes, {r['bound_by']}); eager wrapper call "
+            f"{r['call_ms']:.5f} ms")
+    print(json.dumps({"embedding_bag_calls": rows_out}), flush=True)
+    head = rows_out[0]  # serve_p99, the weighted interest sum
+    entry = {"name": "embedding_bag", "route": "cuda",
+             "source": "src/repro_torch/csrc/embedding_bag.cu",
+             "replaces": "src/repro/kernels/embedding_bag/kernel.py:50",
+             "max_abs_err": err,
+             **{k: head[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}}
+    return entry
+
+
+def din_phase(stack, entry: dict) -> None:
+    """Serve DIN batches through the store and score 1M candidates, with
+    the ``embedding_bag`` counter zeroed before each and read after; hold
+    the outputs against the direct-table path and the CPU port."""
+    import torch
+    from repro_torch.configs.din import RETRIEVAL_CHUNK
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.launch import recsys_din
+    from repro_torch.models.din import (din_forward, din_init,
+                                        din_score_candidates)
+
+    eb.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    report, served, logits = recsys_din.serve(stack, DIN_BATCHES)
+    wall = time.perf_counter() - t0
+    serve_launches = eb.LAUNCHES.value
+    log(f"din serve: {DIN_BATCHES} batches of {stack.batch}, per-batch ms "
+        f"{[round(x, 3) for x in report['batch_ms']]}, p50 "
+        f"{report['p50_ms']:.3f} ms, tier mix {report['tier_mix']} "
+        f"(placement {report['placement']}), embedding_bag launches "
+        f"{serve_launches}, store {report['store']}, wall {wall:.1f} s")
+    check(serve_launches == 2 * DIN_BATCHES,
+          f"din serve launched embedding_bag {serve_launches} times for "
+          f"{DIN_BATCHES} batches, not 2 each")
+    print(json.dumps({"din_serve": {k: report[k] for k in (
+        "items", "batch", "batches", "batch_ms", "p50_ms", "tier_counts",
+        "tier_mix", "placement", "store")}, "launches": serve_launches}),
+        flush=True)
+
+    cfg, model = stack.cfg, stack.model
+    keys = ("target_item", "target_cate", "hist_items", "hist_cates",
+            "dense_feat")
+    for i, (batch, out) in enumerate(zip(served, logits)):
+        check(out.shape == (stack.batch,) and bool(torch.isfinite(out).all()),
+              f"din batch {i}: logits {tuple(out.shape)} not finite")
+        direct = din_forward(model, cfg, *(batch[k] for k in keys))
+        torch.cuda.synchronize()
+        check(torch.equal(direct, out),
+              f"din batch {i}: store path != direct-table path")
+    log(f"din store path == direct-table path bitwise on {DIN_BATCHES} "
+        "batches")
+
+    cpu_model = din_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    first = {k: v.cpu() for k, v in served[0].items()}
+    cpu_logits = din_forward(cpu_model, cfg, *(first[k] for k in keys))
+    worst = float((logits[0].cpu() - cpu_logits).abs().max())
+    check(worst <= CPU_TOL, f"din card vs CPU max |diff| {worst:.3g} > "
+          f"{CPU_TOL}")
+    log(f"din card logits within {CPU_TOL} of the CPU port (max |diff| "
+        f"{worst:.3g})")
+
+    eb.LAUNCHES.reset()
+    ret = recsys_din.score_candidates(stack, served[0], DIN_CANDIDATES)
+    ret_launches = eb.LAUNCHES.value
+    chunks = -(-DIN_CANDIDATES // RETRIEVAL_CHUNK)
+    log(f"din retrieval: {DIN_CANDIDATES} candidates in {chunks} chunks of "
+        f"{RETRIEVAL_CHUNK}: {ret.ms:.3f} ms, embedding_bag launches "
+        f"{ret_launches}")
+    check(ret_launches == 2 * chunks, f"retrieval launched embedding_bag "
+          f"{ret_launches} times, not 2 per chunk ({2 * chunks})")
+    check(ret.scores.shape == (DIN_CANDIDATES,)
+          and bool(torch.isfinite(ret.scores).all()),
+          f"retrieval scores {tuple(ret.scores.shape)} not all finite")
+    k = DIN_CPU_CANDIDATES
+    cpu_scores = din_score_candidates(
+        cpu_model, cfg, first["hist_items"][0], first["hist_cates"][0],
+        first["dense_feat"][0], ret.items[:k].cpu(), ret.cates[:k].cpu(),
+        chunk=k)
+    worst = float((ret.scores[:k].cpu() - cpu_scores).abs().max())
+    check(worst <= CPU_TOL, f"retrieval card vs CPU max |diff| {worst:.3g}")
+    log(f"din retrieval: first {k} scores within {CPU_TOL} of the CPU port "
+        f"(max |diff| {worst:.3g}); score mean "
+        f"{float(ret.scores.mean()):.5f} std {float(ret.scores.std()):.5f}")
+    print(json.dumps({"din_retrieval": {
+        "candidates": DIN_CANDIDATES, "chunk": RETRIEVAL_CHUNK, "ms": ret.ms,
+        "launches": ret_launches, "cpu_max_abs_diff": worst}}), flush=True)
+    entry["launches"] = serve_launches + ret_launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -412,7 +668,18 @@ def main() -> None:
     # 4. serve
     serve_phase(results, stack, fanouts, gen_seeds)
 
-    # 5. summary
+    # 5. din
+    from repro_torch.launch import recsys_din
+    t0 = time.perf_counter()
+    din_stack = recsys_din.build_stack("din", device="cuda")
+    log(f"din stack built in {time.perf_counter() - t0:.1f} s: "
+        f"{din_stack.cfg.n_items} items, placement "
+        f"{din_stack.store.plan.tier_counts()}")
+    entry = embedding_bag_phase(din_stack)
+    din_phase(din_stack, entry)
+    results.append(entry)
+
+    # 6. summary
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

@@ -1,10 +1,11 @@
 """PyTorch/CUDA port of the Quiver serving system for one NVIDIA H100.
 
 The package mirrors ``src/repro`` module for module (``graph``, ``core``,
-``kernels``, ``models``, ``serving``, ``launch``) and imports only
-``torch``, numpy and the standard library: nothing of JAX and nothing of
-the ``repro`` reference package, so it runs where JAX is absent. The two
-Pallas kernels of the serving path (``tiered_gather``, ``gather_aggregate``)
+``kernels``, ``models``, ``configs``, ``serving``, ``launch``) and imports
+only ``torch``, numpy and the standard library: nothing of JAX and nothing
+of the ``repro`` reference package, so it runs where JAX is absent. The
+Pallas kernels of the ported paths (``tiered_gather`` and
+``gather_aggregate`` for GNN serving, ``embedding_bag`` for DIN serving)
 are hand-written CUDA C++ for ``sm_90a`` under ``csrc/``, built with
 ``nvcc`` at first use (see :mod:`repro_torch.kernels.build`).
 

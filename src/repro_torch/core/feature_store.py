@@ -34,7 +34,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.placement import (PlacementPlan, TIER_DISK, TIER_HOST,
-                                        TIER_HOT, TIER_WARM)
+                                        TIER_HOT, TIER_NAMES, TIER_WARM)
 from repro_torch.graph.sampler import fixed_size_unique
 from repro_torch.kernels.gather_aggregate.ops import gather_aggregate
 from repro_torch.kernels.tiered_gather.ops import tiered_gather
@@ -275,6 +275,14 @@ class TieredFeatureStore:
         """Copy of the dispatch counters without resetting them."""
         with self._stats_lock:
             return dict(self.stats)
+
+    def tier_histogram(self, ids: np.ndarray) -> dict[str, int]:
+        """How many of ``ids`` (``-1`` padding dropped) the plan places in
+        each tier."""
+        ids = np.asarray(ids)
+        t = self.plan.tier[ids[ids >= 0]]
+        return {TIER_NAMES[k]: int((t == k).sum())
+                for k in (TIER_HOT, TIER_WARM, TIER_HOST, TIER_DISK)}
 
     def _ids(self, ids) -> torch.Tensor:
         return torch.as_tensor(ids, dtype=torch.int32,

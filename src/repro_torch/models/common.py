@@ -1,5 +1,5 @@
-"""Dense and layer-norm building blocks, and their conversion from the
-reference's parameter dicts.
+"""Dense, layer-norm and MLP building blocks, and their conversion from
+the reference's parameter dicts.
 
 Layouts differ: the reference's ``dense`` computes ``x @ w + b`` with ``w``
 shaped ``(d_in, d_out)``, while ``nn.Linear`` stores ``weight`` as
@@ -10,9 +10,11 @@ shaped ``(d_in, d_out)``, while ``nn.Linear`` stores ``weight`` as
 from __future__ import annotations
 
 import math
+from typing import Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 LN_EPS = 1e-5
@@ -54,3 +56,34 @@ def layer_norm_from_numpy(p: dict) -> nn.LayerNorm:
         ln.weight.copy_(torch.tensor(g))
         ln.bias.copy_(torch.tensor(np.asarray(p["b"], np.float32)))
     return ln
+
+
+class MLP(nn.Module):
+    """The reference's ``mlp``: dense layers with ``act`` after every layer
+    but the last (``final_act=False``), so the output is un-squashed."""
+
+    def __init__(self, layers: Sequence[nn.Linear], act=F.silu):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+        self.act = act
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        last = len(self.layers) - 1
+        for i, lin in enumerate(self.layers):
+            x = lin(x)
+            if i < last:
+                x = self.act(x)
+        return x
+
+
+def mlp_init(generator: torch.Generator, dims: Sequence[int], *,
+             act=F.silu) -> MLP:
+    """``dims = [d_in, h1, ..., d_out]``; layer i is ``dense_init`` of
+    dims[i] → dims[i+1], drawn in order from ``generator``."""
+    return MLP([dense_init(generator, a, b)
+                for a, b in zip(dims[:-1], dims[1:])], act)
+
+
+def mlp_from_numpy(params: Sequence[dict], *, act=F.silu) -> MLP:
+    """The reference's ``mlp_init`` list of ``{"w", "b"}`` dicts → MLP."""
+    return MLP([dense_from_numpy(p) for p in params], act)

@@ -8,8 +8,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import embedding_bag as eb_pkg
 from repro_torch.kernels import gather_aggregate as ga_pkg
 from repro_torch.kernels import tiered_gather as tg_pkg
+from repro_torch.kernels.embedding_bag import ops as eb_ops
+from repro_torch.kernels.embedding_bag import ref as eb_ref
 from repro_torch.kernels.gather_aggregate import ops as ga_ops
 from repro_torch.kernels.gather_aggregate import ref as ga_ref
 from repro_torch.kernels.tiered_gather import ops as tg_ops
@@ -61,3 +64,35 @@ def test_kernels_empty_grid_on_card(card):
         out = ga_ops.gather_aggregate(z2, z2, hot, hot, hot)
         assert out.shape == (s, 8) and not out.any()
     assert (tg_pkg.LAUNCHES.value, ga_pkg.LAUNCHES.value) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_equals_plain_on_card(card, dtype):
+    """The CUDA ``embedding_bag`` is bitwise equal to its plain version
+    (sum and mean, with and without weights; padded rows, an all-padding
+    bag and ids past the table on purpose), one counted launch per call,
+    and an empty grid gives zeros without a launch."""
+    rng = np.random.default_rng(2)
+    table = torch.from_numpy(rng.normal(size=(300, 36)).astype(np.float32))
+    table = table.to(card, dtype)
+    ids = rng.integers(-1, 320, size=(64, 100)).astype(np.int32)
+    ids[0] = -1
+    ids = torch.from_numpy(ids).to(card)
+    w = torch.from_numpy(rng.normal(size=(64, 100)).astype(np.float32))
+    w = w.to(card, dtype)
+    before = eb_pkg.LAUNCHES.value
+    for mode in ("sum", "mean"):
+        for weights in (None, w):
+            got = eb_ops.embedding_bag(table, ids, weights, mode=mode)
+            want = eb_ref.embedding_bag_ref(table, ids, weights, mode=mode)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (mode, weights is not None)
+            assert not got[0].any()
+    assert eb_pkg.LAUNCHES.value == before + 4
+    for b, bag, d in ((0, 5, 36), (4, 0, 36), (4, 5, 0)):
+        out = eb_ops.embedding_bag(
+            torch.ones((3, d), device=card, dtype=dtype),
+            torch.zeros((b, bag), dtype=torch.int32, device=card))
+        assert out.shape == (b, d) and not out.any()
+    assert eb_pkg.LAUNCHES.value == before + 4

@@ -39,6 +39,8 @@ def test_port_imports_with_jax_and_reference_blocked():
             "import repro_torch, repro_torch.launch.serve\n"
             "import repro_torch.core, repro_torch.serving, repro_torch.models\n"
             "import repro_torch.kernels.build\n"
+            "import repro_torch.launch.recsys_din, repro_torch.configs\n"
+            "import repro_torch.kernels.embedding_bag\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
             "               for m in sys.modules if sys.modules[m])\n"
             "print('ok')\n")
