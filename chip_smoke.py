@@ -42,11 +42,29 @@ Phases (any failed check exits non-zero before the result line):
              and within 1e-4 of the port on the CPU, and scores 1,000,000
              candidates for one user (exactly 2 launches per chunk of
              31,250; finite; the first 4,096 within 1e-4 of the CPU port).
-6. summary — one ``{"kernels": [...]}`` line, then the result line
+6. train   — GIN-TU full-graph training at the ``ogb_products`` shape
+             (2,449,408 nodes, 61,859,840 edges, d_feat 100, 47 classes).
+             Kernel checks first: ``segment_spmm`` at the inputs one GIN
+             forward and backward hand it (layer 1 at d 100, layer 2 at d
+             64, the first backward on the transposed table), fp32 and
+             bf16, weighted or not, with ``-1`` in mid-row and all-invalid
+             rows, must be bitwise equal to its plain version; a repeated
+             backward call gives the same bits; empty grids give zeros
+             without a launch. Kernel, plain version and ``torch.sparse.mm``
+             on the CSR adjacency (cuSPARSE; the port never calls it) are
+             timed. Then ``repro_torch.launch.train`` runs
+             ``TRAIN_STEPS`` steps at that shape with the counter zeroed
+             just before and read just after (exactly 9 launches a step:
+             5 forward, 4 backward), finite losses, and its peak device
+             memory; at the launcher's default size the card's first-step
+             loss is held against the port on the CPU, and each
+             parameter's gradient against an fp64 witness on the CPU.
+7. summary — one ``{"kernels": [...]}`` line, then the result line
              ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -60,6 +78,16 @@ DIN_BATCHES = 8
 DIN_CANDIDATES = 1_000_000
 DIN_CPU_CANDIDATES = 4096  # retrieval scores held against the CPU port
 CPU_TOL = 1e-4            # card vs CPU model outputs (fp32, other sum order)
+TRAIN_STEPS = 2
+TRAIN_SHAPE = dict(nodes=2449408, edges=61859840, d_feat=100, classes=47)
+SPMM_PER_STEP = 9          # 5 forward + 4 backward (layer 1 needs none)
+# card gradients at the launcher's default size, per parameter, against
+# an fp64 witness (the port on the CPU in fp64): max |diff| over that
+# parameter's own largest fp64 gradient entry. The CPU port in fp32 reaches
+# 8.1e-5 of it on the weights and biases, and 2.0e-3 on a scalar ε (its
+# gradient is one sum over every node and channel, which cancels).
+GRAD_TOL = 1e-3
+EPS_GRAD_TOL = 1e-2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 
@@ -627,6 +655,242 @@ def din_phase(stack, entry: dict) -> None:
     entry["launches"] = serve_launches + ret_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6
+# ---------------------------------------------------------------------------
+def capture_train_inputs() -> dict:
+    """The ``segment_spmm`` calls of one GIN-TU forward and backward at
+    ``TRAIN_SHAPE`` (the launcher's model and its step-0 batch): layer 1's
+    forward (d 100), layer 2's (d 64) and the first backward call (the
+    transposed table, d 64)."""
+    import torch
+    from repro_torch.configs import gin_tu
+    from repro_torch.configs.gnn_common import make_concrete_batch
+    from repro_torch.kernels.segment_spmm import ops as sp_ops
+    info = dict(TRAIN_SHAPE, graphs=None)
+    model = gin_tu._init(torch.Generator().manual_seed(0), info["d_feat"],
+                         info["classes"], "custom", device="cuda")
+    t0 = time.perf_counter()
+    batch = make_concrete_batch(info, seed=0, device="cuda")
+    log(f"train batch at {TRAIN_SHAPE} drawn and copied in "
+        f"{time.perf_counter() - t0:.1f} s")
+    original = sp_ops.segment_spmm
+    calls = []
+
+    def wrapped(ids, feat, weights=None):
+        calls.append((ids, feat.detach(), weights))
+        return original(ids, feat, weights)
+
+    sp_ops.segment_spmm = wrapped
+    try:
+        loss = gin_tu._loss(model, batch, info, "custom")
+        loss.backward()
+    finally:
+        sp_ops.segment_spmm = original
+    torch.cuda.synchronize()
+    check(len(calls) == SPMM_PER_STEP, f"one GIN step made {len(calls)} "
+          f"segment_spmm calls, not {SPMM_PER_STEP}")
+    return {"layer1_fwd": calls[0], "layer2_fwd": calls[1],
+            "backward": calls[5]}
+
+
+def segment_spmm_phase() -> dict:
+    """Bitwise checks and timings of ``segment_spmm`` at the inputs the
+    training path hands it; prints one timing row per captured call.
+    Returns the ``kernels`` entry (the layer-2 forward, d 64, the width of
+    8 of a step's 9 launches)."""
+    import torch
+    from repro_torch.kernels import segment_spmm as sp
+
+    cap = capture_train_inputs()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    err = 0.0
+
+    def same(got, want, what):
+        nonlocal err
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"segment_spmm != plain ({what})")
+        err = max(err, float((got.float() - want.float()).abs().max()))
+
+    for name, (ids, feat, weights) in cap.items():
+        check(weights is None, f"{name}: the training path is unweighted")
+        n, dmax = ids.shape
+        log(f"segment_spmm {name} inputs: ids={tuple(ids.shape)} "
+            f"feat={tuple(feat.shape)} dtype={feat.dtype} "
+            f"valid={int((ids >= 0).sum())}")
+        mid = torch.where(torch.rand(ids.shape, generator=gen, device=dev)
+                          < 0.5, ids, -1)
+        invalid_rows = ids.clone()
+        invalid_rows[::5] = -1
+        cases = {"path": ids, "mid-row -1": mid,
+                 "all-invalid rows": invalid_rows}
+        w32 = torch.randn(ids.shape, generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            f = feat.to(dtype)
+            for case, case_ids in cases.items():
+                for w in (None, w32.to(dtype)):
+                    got = sp.segment_spmm(case_ids, f, w)
+                    same(got, sp.segment_spmm_plain(case_ids, f, w),
+                         f"{name} {case} weighted={w is not None} {dtype}")
+                    if case == "all-invalid rows":
+                        check(not got[::5].any(),
+                              "segment_spmm all-invalid rows not zero")
+            del f
+        before = sp.LAUNCHES.value
+        for shape, d in (((0, dmax), feat.shape[1]), ((n, 0), feat.shape[1]),
+                         ((n, dmax), 0)):
+            out = sp.segment_spmm(
+                torch.zeros(shape, dtype=torch.int32, device=dev),
+                feat[:, :d].contiguous())
+            check(out.shape == (shape[0], d) and not out.any(),
+                  f"segment_spmm empty grid {shape}, d {d} wrong")
+        check(sp.LAUNCHES.value == before, "segment_spmm empty grid launched")
+    ids_t, grad = cap["backward"][:2]
+    a = sp.segment_spmm_cuda(ids_t, grad)
+    b = sp.segment_spmm_cuda(ids_t, grad)
+    torch.cuda.synchronize()
+    check(torch.equal(a, b), "repeated backward call differs")
+    del a, b
+    log("segment_spmm == plain bitwise (fp32, bf16; weighted and not; "
+        "layer 1, layer 2 and backward inputs at ogb_products, -1 in "
+        "mid-row, all-invalid rows, empty grids); repeated backward call "
+        "bitwise equal")
+
+    rows_out = []
+    for name, (ids, feat, _) in cap.items():
+        n, dmax = ids.shape
+        m, d = feat.shape
+        elem = feat.element_size()
+        valid = ids >= 0
+        nnz = int(valid.sum())
+        rows_read = int((torch.bincount(ids[valid].long(), minlength=m) > 0)
+                        .sum())
+        crow = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+        crow[1:] = valid.sum(1).cumsum(0)
+        adj = torch.sparse_csr_tensor(
+            crow, ids[valid].long(), torch.ones(nnz, device=dev),
+            size=(n, m), check_invariants=False)
+        kern = sp.segment_spmm_cuda(ids, feat)
+        lib = torch.sparse.mm(adj, feat)
+        log(f"torch.sparse.mm yardstick ({name}) max |diff| vs kernel: "
+            f"{float((lib - kern).abs().max()):.3g}")
+        del kern, lib
+        nbytes = n * dmax * 4 + rows_read * d * elem + n * d * elem
+        flops = nnz * d
+        rows_out.append({
+            "call": name, "ids": [n, dmax], "feat": [m, d], "nnz": nnz,
+            "rows_read": rows_read, "gathered_bytes": nnz * d * elem,
+            "ms": time_ms(lambda i=ids, f=feat: sp.segment_spmm_cuda(i, f),
+                          inner=5, reps=10),
+            "plain_ms": time_ms(lambda i=ids, f=feat:
+                                sp.segment_spmm_plain(i, f), inner=1,
+                                reps=3, graph=False),
+            "library_ms": time_ms(lambda a=adj, f=feat: torch.sparse.mm(a, f),
+                                  inner=3, reps=5, graph=False),
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                            flops / FP32_FLOPS) * 1e3,
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= flops / FP32_FLOPS else "operations"),
+            "bytes": nbytes})
+        del adj, crow
+    for r in rows_out:
+        log(f"segment_spmm {r['call']} {r['ids']} x {r['feat']}: kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"torch.sparse.mm {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bytes']} bytes, {r['bound_by']}); "
+            f"gathered {r['gathered_bytes']} bytes")
+    print(json.dumps({"segment_spmm_calls": rows_out}), flush=True)
+    head = rows_out[1]  # layer 2's forward, d 64
+    return {"name": "segment_spmm", "route": "cuda",
+            "source": "src/repro_torch/csrc/segment_spmm.cu",
+            "replaces": "src/repro/kernels/segment_spmm/kernel.py:55",
+            "max_abs_err": err,
+            **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")}}
+
+
+def train_phase(entry: dict) -> None:
+    """The training launcher at ``TRAIN_SHAPE`` with the ``segment_spmm``
+    counter zeroed before and read after; then card vs CPU at the
+    launcher's default size."""
+    import math
+
+    import torch
+    from repro_torch.configs import gin_tu
+    from repro_torch.configs.gnn_common import make_concrete_batch
+    from repro_torch.kernels import segment_spmm as sp
+    from repro_torch.launch import train as train_launcher
+
+    torch.cuda.reset_peak_memory_stats()
+    sp.LAUNCHES.reset()
+    report = train_launcher.main([
+        "--device", "cuda", "--steps", str(TRAIN_STEPS),
+        *(f"--{k.replace('_', '-')}={v}" for k, v in TRAIN_SHAPE.items())])
+    launches = sp.LAUNCHES.value
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train at {TRAIN_SHAPE}: {TRAIN_STEPS} steps in "
+        f"{report['wall_s']:.1f} s, losses {report['losses']}, "
+        f"segment_spmm launches {launches}, peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    check(launches == SPMM_PER_STEP * TRAIN_STEPS,
+          f"training launched segment_spmm {launches} times for "
+          f"{TRAIN_STEPS} steps, not {SPMM_PER_STEP} each")
+    check(report["step"] == TRAIN_STEPS
+          and len(report["losses"]) == TRAIN_STEPS
+          and all(math.isfinite(x) for x in report["losses"]),
+          f"training losses {report['losses']} not {TRAIN_STEPS} finite")
+    print(json.dumps({"train": {"shape": TRAIN_SHAPE, "steps": TRAIN_STEPS,
+                                "losses": report["losses"],
+                                "wall_s": report["wall_s"],
+                                "params": report["params"],
+                                "peak_bytes": peak},
+                      "launches": launches}), flush=True)
+    entry["launches"] = launches
+
+    defaults = train_launcher.parse_args([])
+    info = dict(nodes=defaults.nodes, edges=defaults.edges,
+                d_feat=defaults.d_feat, classes=defaults.classes, graphs=None)
+    out = {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
+                       ("cpu", torch.float64)):
+        model = gin_tu._init(torch.Generator().manual_seed(0),
+                             info["d_feat"], info["classes"], "custom",
+                             device=dev).to(dtype)
+        batch = {k: v.to(dtype) if v.is_floating_point() else v
+                 for k, v in make_concrete_batch(info, seed=0,
+                                                 device=dev).items()}
+        params = dict(model.named_parameters())
+        loss = gin_tu._loss(model, batch, info, "custom")
+        grads = torch.autograd.grad(loss, list(params.values()))
+        out[dev if dtype == torch.float32 else "fp64"] = (
+            float(loss.detach()),
+            {k: g.cpu().double() for k, g in zip(params, grads)})
+    loss_diff = abs(out["cuda"][0] - out["cpu"][0])
+    check(loss_diff <= CPU_TOL, f"train card vs CPU loss |diff| "
+          f"{loss_diff:.3g} > {CPU_TOL}")
+    worst = {}
+    for side in ("cuda", "cpu"):
+        for k, g64 in out["fp64"][1].items():
+            g = out[side][1][k]
+            check(bool(torch.isfinite(g).all()), f"non-finite {side} "
+                  f"gradient {k}")
+            rel = float((g - g64).abs().max()) / float(g64.abs().max())
+            tol = EPS_GRAD_TOL if k.endswith(".eps") else GRAD_TOL
+            check(rel <= tol, f"train {side} gradient of {k} off its fp64 "
+                  f"witness by {rel:.3g} of its own size > {tol}")
+            kind = "eps" if k.endswith(".eps") else "other"
+            if rel >= worst.get((side, kind), (0.0, ""))[0]:
+                worst[side, kind] = (rel, k)
+    log(f"train at the launcher default {info}: card loss "
+        f"{out['cuda'][0]:.7f} vs CPU {out['cpu'][0]:.7f} (|diff| "
+        f"{loss_diff:.3g}); gradients against the fp64 witness, each over "
+        f"its own size (worst, limit): " + "; ".join(
+            f"{side} {kind} {rel:.3g} ({k}, "
+            f"{EPS_GRAD_TOL if kind == 'eps' else GRAD_TOL})"
+            for (side, kind), (rel, k) in sorted(worst.items())))
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -678,8 +942,18 @@ def main() -> None:
     entry = embedding_bag_phase(din_stack)
     din_phase(din_stack, entry)
     results.append(entry)
+    del din_stack
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 6. summary
+    # 6. train
+    entry = segment_spmm_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_phase(entry)
+    results.append(entry)
+
+    # 7. summary
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

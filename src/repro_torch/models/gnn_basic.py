@@ -1,12 +1,19 @@
-"""GraphSAGE (mean aggregator), the served model, in its layered form.
+"""GraphSAGE (mean aggregator), the served model, in its layered form; and
+GIN (``gin-tu``: sum aggregation, learnable ε), trained full-graph.
 
-``hop_feats[k]`` has shape ``(B·∏_{h≤k} f_h, d)``; layer ℓ is applied at
-every remaining hop level, and each level reduces ``(n, f, d) → (n, d)``.
+SAGE: ``hop_feats[k]`` has shape ``(B·∏_{h≤k} f_h, d)``; layer ℓ is applied
+at every remaining hop level, and each level reduces ``(n, f, d) → (n, d)``.
 Every neighbor reduction is :func:`~repro_torch.kernels.gather_aggregate.
 fan_sum` — fp32, one child at a time, in order — the same order as the
 ``gather_aggregate`` kernel, so the fused path (``deep_agg`` from
 ``TieredFeatureStore.lookup_aggregate``) and the unfused one give the same
 bits on the CPU and on the card.
+
+GIN: every layer's neighbor sum is the ``segment_spmm`` kernel over the
+ELL table of the edge list (built once per call on the edges' device), and
+its gradient the same kernel over the transposed table. The reference sums
+with ``scatter_spmm`` (a ``segment_sum``), so the two agree within fp32
+tolerance, not bitwise.
 """
 from __future__ import annotations
 
@@ -16,7 +23,10 @@ import torch
 from torch import nn
 
 from repro_torch import resolve_device
+from repro_torch.graph.segment import segment_sum
 from repro_torch.kernels.gather_aggregate.ref import fan_sum
+from repro_torch.kernels.segment_spmm.ops import segment_spmm_autograd
+from repro_torch.kernels.segment_spmm.ref import ell_pair
 from repro_torch.models.common import (dense_from_numpy, dense_init,
                                        layer_norm_from_numpy, layer_norm_init)
 
@@ -119,3 +129,99 @@ def sage_layered(model: SAGE, hop_feats: Sequence[torch.Tensor],
                                              final=layer == L - 1))
         h = new_h
     return h[0]
+
+
+# ---------------------------------------------------------------------------
+# GIN (gin-tu — 5 layers, 64 hidden, sum aggregation, learnable ε)
+# ---------------------------------------------------------------------------
+class GINLayer(nn.Module):
+    """``relu(LN(mlp2(relu(mlp1((1+ε)·h + agg)))))``, ε a learnable
+    scalar (GIN-ε)."""
+
+    def __init__(self, mlp1: nn.Linear, mlp2: nn.Linear, ln: nn.LayerNorm,
+                 eps: float = 0.0):
+        super().__init__()
+        self.mlp1 = mlp1
+        self.mlp2 = mlp2
+        self.eps = nn.Parameter(torch.tensor(float(eps)))
+        self.ln = ln
+
+    def forward(self, h: torch.Tensor, agg: torch.Tensor) -> torch.Tensor:
+        z = (1.0 + self.eps) * h + agg
+        z = torch.relu(self.mlp1(z))
+        return torch.relu(self.ln(self.mlp2(z)))
+
+
+class GIN(nn.Module):
+    """GIN layers and the dense ``readout`` head."""
+
+    def __init__(self, layers: Sequence[GINLayer], readout: nn.Linear):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+        self.readout = readout
+
+
+def gin_init(generator: torch.Generator, d_in: int, d_hidden: int,
+             n_layers: int, d_out: int, *,
+             device: str | torch.device = "cuda") -> GIN:
+    """GIN with ε = 0; weights drawn on the CPU from ``generator`` (layer
+    by layer: mlp1, mlp2; then the readout), then moved to ``device``."""
+    layers = []
+    dims_in = d_in
+    for _ in range(n_layers):
+        layers.append(GINLayer(dense_init(generator, dims_in, d_hidden),
+                               dense_init(generator, d_hidden, d_hidden),
+                               layer_norm_init(d_hidden)))
+        dims_in = d_hidden
+    return GIN(layers, dense_init(generator, d_hidden, d_out)).to(
+        resolve_device(device))
+
+
+def gin_from_numpy(params_np: dict, device: str | torch.device = "cuda"
+                   ) -> GIN:
+    """Carry the reference's ``gin_init`` tree, as numpy arrays
+    (``{"layers": [{"mlp1": {w, b}, "mlp2": {w, b}, "eps": (), "ln": {g,
+    b}}], "readout": {w, b}}``), into a :class:`GIN` on ``device``."""
+    layers = [GINLayer(dense_from_numpy(p["mlp1"]),
+                       dense_from_numpy(p["mlp2"]),
+                       layer_norm_from_numpy(p["ln"]), float(p["eps"]))
+              for p in params_np["layers"]]
+    return GIN(layers, dense_from_numpy(params_np["readout"])).to(
+        resolve_device(device))
+
+
+def _gin_layers(model: GIN, x: torch.Tensor, src: torch.Tensor,
+                dst: torch.Tensor, num_nodes: int, ell) -> list[torch.Tensor]:
+    """Each layer's node embeddings. The ELL pair is built once and serves
+    all layers: one ``segment_spmm`` launch per layer forward, one per
+    layer backward (none for layer 1, whose input needs no gradient)."""
+    ids, ids_t = ell if ell is not None else ell_pair(src, dst, num_nodes)
+    hs = [x]
+    for layer in model.layers:
+        hs.append(layer(hs[-1], segment_spmm_autograd(ids, hs[-1],
+                                                      ids_t=ids_t)))
+    return hs[1:]
+
+
+def gin_full_graph(model: GIN, x: torch.Tensor, src: torch.Tensor,
+                   dst: torch.Tensor, *, num_nodes: int,
+                   ell: tuple[torch.Tensor, torch.Tensor] | None = None
+                   ) -> torch.Tensor:
+    """Node classification logits ``(N, d_out)``: each layer sums the
+    in-neighbours (edges ``src → dst``; negative ids are no edge).
+
+    ``ell``: the ``(ids, ids_t)`` pair of ``ell_pair(src, dst, num_nodes)``
+    when the caller built it already (``bench/profile_train.py`` times the
+    build apart); else it is built here."""
+    return model.readout(_gin_layers(model, x, src, dst, num_nodes, ell)[-1])
+
+
+def gin_graph_readout(model: GIN, x: torch.Tensor, src: torch.Tensor,
+                      dst: torch.Tensor, graph_id: torch.Tensor, *,
+                      num_nodes: int, num_graphs: int) -> torch.Tensor:
+    """Graph regression/classification: the sum over layers of each
+    layer's per-graph ``segment_sum`` of node embeddings, then the
+    readout. ``(num_graphs, d_out)``."""
+    pooled = sum(segment_sum(h, graph_id, num_graphs)
+                 for h in _gin_layers(model, x, src, dst, num_nodes, None))
+    return model.readout(pooled)

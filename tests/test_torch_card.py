@@ -15,6 +15,9 @@ from repro_torch.kernels.embedding_bag import ops as eb_ops
 from repro_torch.kernels.embedding_bag import ref as eb_ref
 from repro_torch.kernels.gather_aggregate import ops as ga_ops
 from repro_torch.kernels.gather_aggregate import ref as ga_ref
+from repro_torch.kernels import segment_spmm as sp_pkg
+from repro_torch.kernels.segment_spmm import ops as sp_ops
+from repro_torch.kernels.segment_spmm import ref as sp_ref
 from repro_torch.kernels.tiered_gather import ops as tg_ops
 from repro_torch.kernels.tiered_gather import ref as tg_ref
 
@@ -96,3 +99,58 @@ def test_embedding_bag_equals_plain_on_card(card, dtype):
             torch.zeros((b, bag), dtype=torch.int32, device=card))
         assert out.shape == (b, d) and not out.any()
     assert eb_pkg.LAUNCHES.value == before + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [100, 64, 300])
+def test_segment_spmm_equals_plain_on_card(card, dtype, d):
+    """The CUDA ``segment_spmm`` is bitwise equal to its plain version
+    (weighted or not; -1 anywhere in a row, an all-padding row, ids past
+    the table; d with a masked tail and d over one 128-column pass), one
+    counted launch per call, and an empty grid gives zeros without a
+    launch."""
+    rng = np.random.default_rng(3)
+    feat = torch.from_numpy(rng.normal(size=(500, d)).astype(np.float32))
+    feat = feat.to(card, dtype)
+    ids = rng.integers(-1, 520, size=(700, 45)).astype(np.int32)
+    ids[0] = -1
+    ids = torch.from_numpy(ids).to(card)
+    w = torch.from_numpy(rng.normal(size=(700, 45)).astype(np.float32))
+    w = w.to(card, dtype)
+    before = sp_pkg.LAUNCHES.value
+    for weights in (None, w):
+        got = sp_ops.segment_spmm(ids, feat, weights)
+        want = sp_ref.segment_spmm_plain(ids, feat, weights)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), weights is not None
+        assert not got[0].any()
+    assert sp_pkg.LAUNCHES.value == before + 2
+    for n, dmax, width in ((0, 5, d), (4, 0, d), (4, 5, 0)):
+        out = sp_ops.segment_spmm(
+            torch.zeros((n, dmax), dtype=torch.int32, device=card),
+            torch.ones((3, width), device=card, dtype=dtype))
+        assert out.shape == (n, width) and not out.any()
+    assert sp_pkg.LAUNCHES.value == before + 2
+
+
+@pytest.mark.cuda
+def test_segment_spmm_gradient_on_card(card):
+    """The autograd Function's backward (the kernel on the transposed
+    table) equals the plain version's on the CPU bitwise, and a repeated
+    backward gives the same bits."""
+    n = 2000
+    rng = np.random.default_rng(4)
+    src = torch.from_numpy(rng.integers(0, n, 30000).astype(np.int32))
+    dst = torch.from_numpy(rng.integers(0, n, 30000).astype(np.int32))
+    x = torch.from_numpy(rng.normal(size=(n, 64)).astype(np.float32))
+    r = torch.from_numpy(rng.normal(size=(n, 64)).astype(np.float32))
+    grads = []
+    for dev in (card, card, torch.device("cpu")):
+        ids, ids_t = sp_ref.ell_pair(src.to(dev), dst.to(dev), n)
+        a = x.to(dev).requires_grad_()
+        out = sp_ops.segment_spmm_autograd(ids, a, ids_t=ids_t)
+        (out * r.to(dev)).sum().backward()
+        grads.append(a.grad.cpu())
+    assert torch.equal(grads[0], grads[1])
+    assert torch.equal(grads[0], grads[2])

@@ -41,6 +41,10 @@ def test_port_imports_with_jax_and_reference_blocked():
             "import repro_torch.kernels.build\n"
             "import repro_torch.launch.recsys_din, repro_torch.configs\n"
             "import repro_torch.kernels.embedding_bag\n"
+            "import repro_torch.training, repro_torch.launch.train\n"
+            "import repro_torch.configs.gin_tu\n"
+            "import repro_torch.kernels.segment_spmm\n"
+            "import repro_torch.bench.profile_train\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
             "               for m in sys.modules if sys.modules[m])\n"
             "print('ok')\n")
