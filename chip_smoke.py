@@ -59,11 +59,32 @@ Phases (any failed check exits non-zero before the result line):
              memory; at the launcher's default size the card's first-step
              loss is held against the port on the CPU, and each
              parameter's gradient against an fp64 witness on the CPU.
-7. summary — one ``{"kernels": [...]}`` line, then the result line
+7. lm      — qwen3-4b serving at its published widths and 36 layers.
+             The earlier stacks are released first. ``repro_torch.launch.
+             lm`` runs at its defaults (one request: a 32,768-token prefill,
+             then 16 greedy decode steps, bf16 serving weights) with the
+             ``flash_attention`` counter zeroed just before and read just
+             after (exactly 36 launches: one a layer, none in decode);
+             logits finite, generated ids in the vocabulary. Layer 0's and
+             layer 35's q/k/v of that prefill are kept (references, no
+             copy). Kernel checks: at those inputs in bf16 and cast to
+             fp32, and on edge cases (Sq 257, non-causal, H = KV = 20, dh
+             64, B 2), the kernel must be within ``ref.tolerance`` of its
+             plain version (fp32 2e-5; bf16 one ulp of the larger magnitude
+             plus 2e-5); Sq = 0 and Skv = 0 give zeros without a launch.
+             Kernel, plain version and ``F.scaled_dot_product_attention``
+             (the port never calls it) are timed at layer 0's inputs, eager,
+             1 call a sample. Then card vs CPU at full width with 2 layers
+             and a 257-token prompt: fp32 logits and the fp32 k/v the cache
+             stores within 1e-4, the bf16 cache within one bf16 ulp plus
+             1e-4; bf16 serving weights and activations within
+             ``LM_BF16_CPU_TOL``.
+8. summary — one ``{"kernels": [...]}`` line, then the result line
              ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import statistics
@@ -90,6 +111,16 @@ GRAD_TOL = 1e-3
 EPS_GRAD_TOL = 1e-2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
+BF16_TENSOR_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+LM_LAYERS = 36             # qwen3-4b: one flash_attention launch a layer
+LM_CAPTURE_LAYERS = (0, 35)
+LM_CPU_LAYERS = 2          # card vs CPU: full width, depth cut to 2
+LM_CPU_PROMPT = 257
+# card vs CPU in bf16 weights and activations, max |logit diff|: bf16
+# rounds in other orders on the two sides; the CPU port's bf16 logits sit
+# ~0.05 from its fp32 ones at this shape (vocab cut to 8,192), so two bf16
+# runs are held to 0.125 (set before the card ran it; PERF.md, PR 14)
+LM_BF16_CPU_TOL = 0.125
 
 
 def log(msg: str) -> None:
@@ -891,6 +922,239 @@ def train_phase(entry: dict) -> None:
             for (side, kind), (rel, k) in sorted(worst.items())))
 
 
+# ---------------------------------------------------------------------------
+# phase 7
+# ---------------------------------------------------------------------------
+def lm_serve_phase() -> tuple[dict, dict, int]:
+    """The LM launcher at its defaults with the ``flash_attention`` counter
+    zeroed just before and read just after; keeps the q/k/v that layers
+    ``LM_CAPTURE_LAYERS`` hand the kernel. Returns (report, captures,
+    launches)."""
+    import math
+
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import lm as lm_launcher
+
+    captured, calls = {}, []
+    original = fa_ops.flash_attention
+
+    def recorder(q, k, v, *, causal=True):
+        if len(calls) in LM_CAPTURE_LAYERS:
+            captured[len(calls)] = (q, k, v)
+        calls.append(causal)
+        return original(q, k, v, causal=causal)
+
+    fa_ops.flash_attention = recorder
+    fa.LAUNCHES.reset()
+    try:
+        report = lm_launcher.main(["--device", "cuda"])
+    finally:
+        fa_ops.flash_attention = original
+    launches = fa.LAUNCHES.value
+    req = report["requests"]
+    log(f"lm serve ({report['arch']}, {report['params']:,} params, batch "
+        f"{report['batch']}, prompt {report['prompt_len']}, "
+        f"{report['new_tokens']} new tokens): prefill "
+        f"{req[0]['prefill_ms']:.1f} ms, decode "
+        f"{req[0]['decode_ms_per_token']:.2f} ms/token, flash_attention "
+        f"launches {launches}, peak device memory "
+        f"{report['peak_bytes'] / 2**30:.2f} GiB (with the 0.75 GiB of "
+        f"captured layer inputs)")
+    check(launches == LM_LAYERS * len(req), f"lm serving launched "
+          f"flash_attention {launches} times for {len(req)} request(s), not "
+          f"{LM_LAYERS} each")
+    check(all(causal for causal in calls) and len(calls) == launches,
+          "lm prefill attention calls were not all causal kernel launches")
+    check(report["logits_finite"], "lm serving logits not finite")
+    from repro_torch.configs import LM_ARCHS
+    vocab = LM_ARCHS[report["arch"]].vocab
+    for r in req:
+        ids = [i for row in r["generated"] for i in row]
+        check(len(ids) == report["batch"] * (report["new_tokens"] + 1)
+              and all(0 <= i < vocab for i in ids),
+              f"lm generated ids {r['generated']} not in the vocabulary")
+        check(math.isfinite(r["prefill_ms"])
+              and math.isfinite(r["decode_ms_per_token"]),
+              "lm timings missing")
+    print(json.dumps({"lm_serve": {k: report[k] for k in (
+        "arch", "params", "batch", "prompt_len", "new_tokens", "requests",
+        "peak_bytes")}, "launches": launches}), flush=True)
+    return report, captured, launches
+
+
+def flash_attention_phase(captured: dict) -> dict:
+    """Kernel vs plain at the captured 32k layer inputs and on edge cases;
+    times. Returns the ``kernels`` entry (layer 0, bf16)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    err = 0.0
+
+    def held(q, k, v, what, causal=True):
+        nonlocal err
+        got = fa.flash_attention_cuda(q, k, v, causal=causal)
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        diff = float((got.float() - want.float()).abs().max())
+        check(fa_ref.within_tolerance(got, want), f"flash_attention off its "
+              f"plain version ({what}): max |diff| {diff:.3g}")
+        err = max(err, diff)
+        return diff
+
+    for layer, (q, k, v) in sorted(captured.items()):
+        log(f"flash_attention layer {layer} inputs: q {tuple(q.shape)} k "
+            f"{tuple(k.shape)} {q.dtype}")
+        for dtype in (torch.bfloat16, torch.float32):
+            d = held(q.to(dtype), k.to(dtype), v.to(dtype),
+                     f"layer {layer}, {dtype}")
+            log(f"flash_attention layer {layer} {dtype}: max |kernel - "
+                f"plain| {d:.3g}")
+    q, k, v = captured[0]
+
+    def part(x, s0, s1, h0=0, h1=None, d0=0, d1=None):
+        return x[:, s0:s1, h0:h1, d0:d1].contiguous()
+
+    edge = {
+        "Sq 257 (tail tile)": ((part(q, 0, 257), part(k, 0, 257),
+                                part(v, 0, 257)), True),
+        "non-causal": ((part(q, 0, 1024), part(k, 0, 1024),
+                        part(v, 0, 1024)), False),
+        "H = KV = 20": ((part(q, 0, 512, 0, 20), part(q, 0, 512, 12, 32),
+                         part(q, 512, 1024, 0, 20)), True),
+        "dh 64": ((part(q, 0, 512, d1=64), part(k, 0, 512, d1=64),
+                   part(v, 0, 512, d0=64)), True),
+        "B 2": ((torch.cat([part(q, 0, 384), part(q, 384, 768)]),
+                 torch.cat([part(k, 0, 384), part(k, 384, 768)]),
+                 torch.cat([part(v, 0, 384), part(v, 384, 768)])), True),
+    }
+    for name, ((eq, ek, ev), causal) in edge.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            held(eq.to(dtype), ek.to(dtype), ev.to(dtype),
+                 f"{name}, {dtype}", causal)
+    before = fa.LAUNCHES.value
+    for sq, skv in ((0, 64), (64, 0)):
+        out = fa.flash_attention_cuda(part(q, 0, sq), part(k, 0, skv),
+                                      part(v, 0, skv))
+        check(out.shape == (1, sq, q.shape[2], q.shape[3])
+              and not out.any(), f"flash_attention Sq {sq} Skv {skv} "
+              "not zeros")
+    check(fa.LAUNCHES.value == before, "flash_attention empty input "
+          "launched")
+    log("flash_attention within tolerance of plain (bf16 and fp32 at layers "
+        f"{sorted(captured)} of the 32k prefill; {', '.join(edge)}); Sq = 0 "
+        "and Skv = 0 give zeros without a launch")
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True).transpose(1, 2)
+    log("scaled_dot_product_attention yardstick vs kernel max |diff|: "
+        f"{float((lib.float() - fa.flash_attention_cuda(q, k, v).float()).abs().max()):.3g}")
+    del lib
+    b, s, h, dh = q.shape
+    kvh = k.shape[2]
+    nbytes = (2 * b * s * h * dh + 2 * b * s * kvh * dh) * q.element_size()
+    flops = 4 * b * h * dh * s * (s + 1) // 2
+    row = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:81",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v), inner=1,
+                      reps=3, graph=False),
+        "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v),
+                            inner=1, reps=3, graph=False),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), inner=1, reps=3,
+            graph=False),
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                        flops / BF16_TENSOR_FLOPS) * 1e3,
+        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                     >= flops / BF16_TENSOR_FLOPS else "operations")}
+    log(f"flash_attention layer 0 (1, {s}, {h}|{kvh}, {dh}) bf16 causal: "
+        f"kernel {row['ms']:.3f} ms ({flops / row['ms'] / 1e9:.1f} TFLOP/s), "
+        f"plain {row['plain_ms']:.1f} ms, scaled_dot_product_attention "
+        f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+        f"({flops} flops, {nbytes} bytes, {row['bound_by']})")
+    return row
+
+
+def lm_cpu_phase() -> None:
+    """qwen3-4b at full width with ``LM_CPU_LAYERS`` layers: the card's
+    prefill against the port on the CPU, same weights and prompt."""
+    import torch
+    from repro_torch.configs import qwen3_4b
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import bf16_ulp
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(qwen3_4b.CONFIG, n_layers=LM_CPU_LAYERS,
+                              dtype="float32")
+    t0 = time.perf_counter()
+    cpu = tf.lm_init(torch.Generator().manual_seed(0), cfg)
+    tokens = torch.randint(0, cfg.vocab, (1, LM_CPU_PROMPT),
+                           generator=torch.Generator().manual_seed(1))
+    original = fa_ops.flash_attention
+    out = {}
+    for dtype, cfg_d in ((torch.float32, cfg),
+                         (torch.bfloat16, dataclasses.replace(
+                             cfg, dtype="bfloat16"))):
+        for dev in ("cuda", "cpu"):
+            model = tf.LM(cfg_d, dtype=dtype, device=dev)
+            model.load_state_dict(cpu.state_dict())
+            qkv = []
+
+            def recorder(q, k, v, *, causal=True):
+                qkv.append((q.cpu(), k.cpu(), v.cpu()))
+                return original(q, k, v, causal=causal)
+
+            fa_ops.flash_attention = recorder
+            try:
+                logits, cache = tf.lm_prefill(model, tokens.to(dev), cfg_d)
+            finally:
+                fa_ops.flash_attention = original
+            out[dtype, dev] = (logits.cpu(), {k: c.cpu()
+                                              for k, c in cache.items()},
+                               qkv)
+            del model
+    log(f"lm card vs CPU set-up and runs: {time.perf_counter() - t0:.1f} s")
+    (cl, cc, cqkv), (pl, pc, pqkv) = (out[torch.float32, "cuda"],
+                                      out[torch.float32, "cpu"])
+    diffs = {"logits": float((cl - pl).abs().max())}
+    for i, (a, b) in enumerate(zip(cqkv, pqkv)):
+        for name, x, y in zip("qkv", a, b):
+            diffs[f"layer{i}.{name}"] = float((x - y).abs().max())
+    worst = max(diffs.values())
+    check(worst <= CPU_TOL, f"lm card vs CPU (fp32) max |diff| {worst:.3g} "
+          f"> {CPU_TOL}: {diffs}")
+    for key in ("k", "v"):
+        a, b = cc[key].float(), pc[key].float()
+        allow = bf16_ulp(torch.maximum(a.abs(), b.abs())) + CPU_TOL
+        check(bool(((a - b).abs() <= allow).all()), f"lm card vs CPU bf16 "
+              f"cache {key} beyond one bf16 ulp + {CPU_TOL}")
+    log(f"lm card vs CPU at full width, {LM_CPU_LAYERS} layers, prompt "
+        f"{LM_CPU_PROMPT}, fp32: logits max |diff| {diffs['logits']:.3g}, "
+        f"the fp32 q/k/v (k/v as cached) max |diff| {worst:.3g} (limit "
+        f"{CPU_TOL}); bf16 cache within one bf16 ulp + {CPU_TOL}")
+    bl = float((out[torch.bfloat16, "cuda"][0]
+                - out[torch.bfloat16, "cpu"][0]).abs().max())
+    check(bl <= LM_BF16_CPU_TOL, f"lm card vs CPU (bf16) logits max |diff| "
+          f"{bl:.3g} > {LM_BF16_CPU_TOL}")
+    own = float((out[torch.bfloat16, "cpu"][0] - pl).abs().max())
+    log(f"lm card vs CPU, bf16 weights and activations: logits max |diff| "
+        f"{bl:.3g} (limit {LM_BF16_CPU_TOL}; max |logit| "
+        f"{float(pl.abs().max()):.3g}; the CPU's own bf16 logits sit "
+        f"{own:.3g} from its fp32 ones)")
+    print(json.dumps({"lm_card_vs_cpu": {
+        "layers": LM_CPU_LAYERS, "prompt": LM_CPU_PROMPT,
+        "fp32_max_abs_diff": diffs, "bf16_logits_max_abs_diff": bl,
+        "cpu_bf16_vs_fp32_logits_max_abs_diff": own}}),
+        flush=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -952,8 +1216,21 @@ def main() -> None:
     torch.cuda.empty_cache()
     train_phase(entry)
     results.append(entry)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 7. summary
+    # 7. lm
+    torch.cuda.reset_peak_memory_stats()
+    _, captured, launches = lm_serve_phase()
+    entry = flash_attention_phase(captured)
+    entry["launches"] = launches
+    del captured
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_cpu_phase()
+    results.append(entry)
+
+    # 8. summary
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

@@ -1,11 +1,12 @@
-"""Dense, layer-norm and MLP building blocks, and their conversion from
-the reference's parameter dicts.
+"""Dense, layer-norm, RMS-norm and MLP building blocks, and their
+conversion from the reference's parameter dicts.
 
 Layouts differ: the reference's ``dense`` computes ``x @ w + b`` with ``w``
 shaped ``(d_in, d_out)``, while ``nn.Linear`` stores ``weight`` as
 ``(d_out, d_in)``, so :func:`dense_from_numpy` transposes. The reference's
 ``layer_norm`` keys are ``g``/``b``, eps 1e-5, biased variance — what
-``nn.LayerNorm(dim, eps=1e-5)`` computes.
+``nn.LayerNorm(dim, eps=1e-5)`` computes. Its ``rms_norm`` (eps 1e-6)
+computes in fp32 whatever the input type and casts back.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 LN_EPS = 1e-5
+RMS_EPS = 1e-6
 
 
 def dense_init(generator: torch.Generator, d_in: int, d_out: int) -> nn.Linear:
@@ -87,3 +89,25 @@ def mlp_init(generator: torch.Generator, dims: Sequence[int], *,
 def mlp_from_numpy(params: Sequence[dict], *, act=F.silu) -> MLP:
     """The reference's ``mlp_init`` list of ``{"w", "b"}`` dicts → MLP."""
     return MLP([dense_from_numpy(p) for p in params], act)
+
+
+def rms_norm(x: torch.Tensor, g: torch.Tensor, *,
+             eps: float = RMS_EPS) -> torch.Tensor:
+    """The reference's ``rms_norm``: ``x / sqrt(mean(x²) + eps) · g`` in
+    fp32 (the gain upcast before the multiply), cast back to x's dtype."""
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (y * g.float()).to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    """:func:`rms_norm` with its gain ``weight`` (unit at init)."""
+
+    def __init__(self, dim: int, *, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim, dtype=dtype,
+                                              device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rms_norm(x, self.weight)

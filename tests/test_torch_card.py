@@ -11,6 +11,7 @@ import torch
 from repro_torch.kernels import embedding_bag as eb_pkg
 from repro_torch.kernels import gather_aggregate as ga_pkg
 from repro_torch.kernels import tiered_gather as tg_pkg
+from repro_torch.kernels import flash_attention as fa_pkg
 from repro_torch.kernels.embedding_bag import ops as eb_ops
 from repro_torch.kernels.embedding_bag import ref as eb_ref
 from repro_torch.kernels.gather_aggregate import ops as ga_ops
@@ -19,6 +20,9 @@ from repro_torch.kernels import segment_spmm as sp_pkg
 from repro_torch.kernels.segment_spmm import ops as sp_ops
 from repro_torch.kernels.segment_spmm import ref as sp_ref
 from repro_torch.kernels.tiered_gather import ops as tg_ops
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.tiered_gather import ref as tg_ref
 
 
@@ -154,3 +158,74 @@ def test_segment_spmm_gradient_on_card(card):
         grads.append(a.grad.cpu())
     assert torch.equal(grads[0], grads[1])
     assert torch.equal(grads[0], grads[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_equals_plain_on_card(card, dtype):
+    """The CUDA ``flash_attention`` within ``ref.tolerance`` of its plain
+    version (fp32: 2e-5; bf16: one ulp of the larger magnitude plus 2e-5)
+    over head widths 16-128, GQA groups, causal or full, Sq != Skv and a
+    tail tile; one counted launch per call."""
+    gen = torch.Generator(device=card).manual_seed(0)
+    shapes = [(1, 128, 128, 4, 4, 64, True), (2, 96, 96, 4, 4, 32, False),
+              (1, 257, 257, 2, 2, 64, True), (1, 16, 24, 2, 2, 128, True),
+              (2, 40, 24, 8, 2, 96, True), (1, 24, 40, 8, 1, 32, False),
+              (2, 300, 300, 20, 20, 128, True), (1, 70, 70, 4, 1, 16, True),
+              (1, 1000, 1000, 32, 8, 128, True)]
+    before = fa_pkg.LAUNCHES.value
+    for b, sq, skv, h, kv, dh, causal in shapes:
+        q = torch.randn((b, sq, h, dh), generator=gen, device=card)
+        k = torch.randn((b, skv, kv, dh), generator=gen, device=card)
+        v = torch.randn((b, skv, kv, dh), generator=gen, device=card)
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        got = fa_ops.flash_attention(q, k, v, causal=causal)
+        want = fa_ref.flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype
+        assert fa_ref.within_tolerance(got, want), (b, sq, skv, h, kv, dh)
+    assert fa_pkg.LAUNCHES.value == before + len(shapes)
+
+
+@pytest.mark.cuda
+def test_flash_attention_empty_and_refused_on_card(card):
+    """Sq = 0 and Skv = 0 give zeros without a launch; inputs the kernel
+    does not take raise instead of reaching the plain version."""
+    before = fa_pkg.LAUNCHES.value
+    for sq, skv in ((0, 8), (8, 0)):
+        q = torch.ones((1, sq, 4, 64), device=card, dtype=torch.bfloat16)
+        k = torch.ones((1, skv, 2, 64), device=card, dtype=torch.bfloat16)
+        out = fa_ops.flash_attention(q, k, k)
+        assert out.shape == q.shape and not out.any()
+    assert fa_pkg.LAUNCHES.value == before
+    q = torch.ones((1, 8, 4, 48), device=card)
+    with pytest.raises(ValueError, match="head dim"):
+        fa_kernel.flash_attention_cuda(q, q, q)
+    q = torch.ones((1, 8, 4, 64), device=card)
+    with pytest.raises(ValueError):
+        fa_kernel.flash_attention_cuda(q, q.bfloat16(), q.bfloat16())
+    with pytest.raises(ValueError):
+        fa_kernel.flash_attention_cuda(q.transpose(1, 2), q, q)
+    with pytest.raises(ValueError):
+        fa_kernel.flash_attention_cuda(q, q[:, :, :3], q[:, :, :3])
+    assert fa_pkg.LAUNCHES.value == before
+
+
+@pytest.mark.cuda
+def test_lm_prefill_card_matches_cpu(card):
+    """The smoke-size qwen3-4b prefill on the card (one kernel launch per
+    layer) against the same weights on the CPU: logits within 1e-4."""
+    from repro_torch.configs import lm_common, qwen3_4b
+    from repro_torch.models import transformer as tf
+    cfg = lm_common.smoke_config(qwen3_4b.CONFIG)
+    cpu = tf.lm_init(torch.Generator().manual_seed(0), cfg)
+    dev = tf.LM(cfg, device=card)
+    dev.load_state_dict(cpu.state_dict())
+    tokens = torch.randint(0, cfg.vocab, (2, 150),
+                           generator=torch.Generator().manual_seed(1))
+    before = fa_pkg.LAUNCHES.value
+    got, cache = tf.lm_prefill(dev, tokens.to(card), cfg)
+    want, want_cache = tf.lm_prefill(cpu, tokens, cfg)
+    assert fa_pkg.LAUNCHES.value == before + cfg.n_layers
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    assert cache["k"].shape == want_cache["k"].shape

@@ -45,6 +45,9 @@ def test_port_imports_with_jax_and_reference_blocked():
             "import repro_torch.configs.gin_tu\n"
             "import repro_torch.kernels.segment_spmm\n"
             "import repro_torch.bench.profile_train\n"
+            "import repro_torch.kernels.flash_attention\n"
+            "import repro_torch.models.transformer, repro_torch.launch.lm\n"
+            "import repro_torch.configs.qwen3_4b, repro_torch.bench.profile_lm\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
             "               for m in sys.modules if sys.modules[m])\n"
             "print('ok')\n")
