@@ -8,6 +8,9 @@ reused), and loaded with ``ctypes``. Nothing is built when a module is
 imported: the first launch builds, or :func:`build_all` builds every
 kernel at once, one ``nvcc`` process per source, all started together.
 
+The compiler's output (with ``-Xptxas -v``: each kernel's registers,
+shared memory and spills) is kept beside the library as ``<lib>.log``.
+
 Every exported C function launches on the stream it is given and returns
 ``cudaGetLastError()``; the Python wrappers raise when that is non-zero.
 """
@@ -16,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -29,7 +33,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("tiered_gather", "gather_aggregate", "embedding_bag",
            "segment_spmm", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -102,10 +106,42 @@ def build(names: Sequence[str] = KERNELS) -> dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"{name}:\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)  # atomic: a reader never sees half a library
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return paths
+
+
+def build_log(name: str) -> str:
+    """The compiler's output for ``name``'s library (built if needed)."""
+    return build([name])[name].with_suffix(".log").read_text()
+
+
+def ptxas_resources(log: str) -> dict[str, dict[str, int]]:
+    """Per compiled kernel (mangled name) in a ``-Xptxas -v`` log: its
+    ``registers``, ``stack`` frame, ``spill_stores`` and ``spill_loads``
+    bytes."""
+    out: dict[str, dict[str, int]] = {}
+    fn = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {}
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[fn].update(stack=int(m.group(1)),
+                           spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+    return out
 
 
 def build_all() -> dict[str, Path]:

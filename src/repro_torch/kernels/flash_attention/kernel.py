@@ -2,9 +2,11 @@
 
 Replaces ``src/repro/kernels/flash_attention/kernel.py::
 flash_attention_pallas``. Bounded by operations (a causal prefill does
-``4·B·H·dh·Sq(Sq+1)/2`` flops on inputs read once); one CTA per (b, h,
-64-query tile), q·kᵀ on the tensor cores for bf16 and p·v in fp32 on the
-CUDA cores. See the source for the design note.
+``4·B·H·dh·Sq(Sq+1)/2`` flops on inputs read once). bf16, what the LM
+serves (:data:`DESIGNS`): ``wgmma`` fed by a TMA ring, one CTA per (b, h,
+128-query tile), p·v on the tensor cores as three bf16 terms of the fp32
+p (``ref.split_bf16x3``). fp32, for checks: CUDA cores. See the source for
+the design note.
 """
 from __future__ import annotations
 
@@ -17,7 +19,12 @@ from repro_torch.kernels.build import DTYPE_SUFFIX, LaunchCounter, load
 
 LAUNCHES = LaunchCounter()
 HEAD_DIMS = (16, 32, 64, 96, 128)  # the head widths the kernel is built for
-MAX_GRID_YZ = 65535             # heads and batch ride grid.y and grid.z
+MAX_GRID_YZ = 65535             # grid.y and grid.z limits
+BF16_BLOCK_M = 128              # queries per CTA of the bf16 kernel
+DESIGNS = {torch.bfloat16: "wgmma+tma", torch.float32: "cuda-cores"}
+# codes the C launcher returns beside cudaError_t's
+_LAUNCHER_ERRORS = {-1: "the driver has no cuTensorMapEncodeTiled",
+                    -2: "cuTensorMapEncodeTiled refused the tensor map"}
 
 _P, _I, _F, _C = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_int
 _SYMBOLS = {f"flash_attention_{s}": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -68,9 +75,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {dh} not in "
                          f"{HEAD_DIMS}")
-    if h > MAX_GRID_YZ or b > MAX_GRID_YZ:
-        raise ValueError(f"flash_attention: B {b} and H {h} must be at "
-                         f"most {MAX_GRID_YZ}")
+    # fp32 grid: (q tiles, H, B); bf16: (H, q tiles, B)
+    if h > MAX_GRID_YZ or b > MAX_GRID_YZ \
+            or -(-sq // BF16_BLOCK_M) > MAX_GRID_YZ or max(sq, skv) >= 2**31:
+        raise ValueError(f"flash_attention: B {b}, H {h} and Sq / "
+                         f"{BF16_BLOCK_M} must be at most {MAX_GRID_YZ}, "
+                         f"Sq and Skv below 2^31")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -84,6 +94,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  b, sq, skv, h, kvh, dh, 1.0 / math.sqrt(dh), int(causal),
                  stream)
     if err:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+        why = _LAUNCHER_ERRORS.get(err, f"CUDA error {err}")
+        raise RuntimeError(f"flash_attention launch failed: {why}")
     LAUNCHES.add()
     return out
+

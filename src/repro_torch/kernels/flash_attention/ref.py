@@ -84,6 +84,28 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def split_bf16x3(p: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The CUDA kernel's split of fp32 ``p`` into three bf16 terms, so that
+    p·v runs on bf16 tensor cores without rounding p (the products are
+    exact in fp32; the tensor core's own sums are not fp32 rounding, which
+    the kernel's card checks cover, not this function): ``hi = bf16(p)``,
+    ``mid = bf16(p - hi)``, ``lo = bf16(p - hi - mid)``, each rounded to
+    nearest even, each subtraction in fp32 (exact: the residual fits in
+    fp32's significand). ``(hi + mid) + lo == p`` bit for bit for every
+    ``p >= 2^-110`` (7.7037e-34: three 8-bit significands cover fp32's 24,
+    and ``lo`` still reaches ``p``'s last bit, 2^-133, bf16's smallest
+    subnormal); below, ``lo`` cannot hold the last bits and the error
+    stays under 2^-134 (4.6e-41).
+    """
+    p = p.float()
+    hi = p.to(torch.bfloat16)
+    r = p - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     """The spacing of bf16 values at ``|x|``: ``2^(e-7)`` for ``|x|`` in
     ``[2^e, 2^(e+1))``."""

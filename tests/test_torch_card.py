@@ -165,17 +165,33 @@ def test_segment_spmm_gradient_on_card(card):
 def test_flash_attention_equals_plain_on_card(card, dtype):
     """The CUDA ``flash_attention`` within ``ref.tolerance`` of its plain
     version (fp32: 2e-5; bf16: one ulp of the larger magnitude plus 2e-5)
-    over head widths 16-128, GQA groups, causal or full, Sq != Skv and a
-    tail tile; one counted launch per call."""
+    over head widths 16-128, GQA groups 1/2/4/8, causal or full, Sq != Skv
+    (Skv > Sq aligned top-left), tail tiles of the bf16 kernel's 128-query
+    and 128-key tiles, B 2 with sequences shorter than a tile, a 4,096-token
+    causal case, and q scaled ×8 (p spans ~80 binades, so the bf16
+    kernel's ``mid``/``lo`` terms matter); one counted launch per call.
+    Then B 2 with a 100-token first sequence and inf in every k/v row of
+    the second: the first sequence's output must not change, so no tile
+    of it reads across the batch boundary."""
     gen = torch.Generator(device=card).manual_seed(0)
-    shapes = [(1, 128, 128, 4, 4, 64, True), (2, 96, 96, 4, 4, 32, False),
-              (1, 257, 257, 2, 2, 64, True), (1, 16, 24, 2, 2, 128, True),
-              (2, 40, 24, 8, 2, 96, True), (1, 24, 40, 8, 1, 32, False),
-              (2, 300, 300, 20, 20, 128, True), (1, 70, 70, 4, 1, 16, True),
-              (1, 1000, 1000, 32, 8, 128, True)]
+    # (B, Sq, Skv, H, KV, dh, causal, q scale)
+    shapes = [(1, 128, 128, 4, 4, 64, True, 1), (2, 96, 96, 4, 4, 32, False, 1),
+              (1, 257, 257, 2, 2, 64, True, 1),
+              (1, 16, 24, 2, 2, 128, True, 1),
+              (2, 40, 24, 8, 2, 96, True, 1), (1, 24, 40, 8, 1, 32, False, 1),
+              (2, 300, 300, 20, 20, 128, True, 1),
+              (1, 70, 70, 4, 1, 16, True, 1),
+              (1, 1000, 1000, 32, 8, 128, True, 1),
+              (1, 200, 700, 8, 2, 64, True, 1),
+              (1, 200, 700, 8, 8, 96, False, 1),
+              (2, 100, 100, 4, 1, 128, True, 1),
+              (2, 60, 300, 8, 8, 16, False, 1),
+              (1, 4096, 4096, 8, 2, 128, True, 1),
+              (1, 384, 384, 32, 8, 128, True, 8),
+              (1, 300, 300, 8, 1, 64, False, 8)]
     before = fa_pkg.LAUNCHES.value
-    for b, sq, skv, h, kv, dh, causal in shapes:
-        q = torch.randn((b, sq, h, dh), generator=gen, device=card)
+    for b, sq, skv, h, kv, dh, causal, scale in shapes:
+        q = torch.randn((b, sq, h, dh), generator=gen, device=card) * scale
         k = torch.randn((b, skv, kv, dh), generator=gen, device=card)
         v = torch.randn((b, skv, kv, dh), generator=gen, device=card)
         q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
@@ -185,6 +201,19 @@ def test_flash_attention_equals_plain_on_card(card, dtype):
         assert got.dtype == dtype
         assert fa_ref.within_tolerance(got, want), (b, sq, skv, h, kv, dh)
     assert fa_pkg.LAUNCHES.value == before + len(shapes)
+
+    q = torch.randn((2, 100, 4, 128), generator=gen, device=card).to(dtype)
+    k = torch.randn((2, 100, 2, 128), generator=gen, device=card).to(dtype)
+    v = torch.randn((2, 100, 2, 128), generator=gen, device=card).to(dtype)
+    k[1] = float("inf")
+    v[1] = float("inf")
+    for causal in (True, False):
+        got = fa_ops.flash_attention(q, k, v, causal=causal)[:1]
+        want = fa_ref.flash_attention_plain(q[:1], k[:1], v[:1],
+                                            causal=causal)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        assert fa_ref.within_tolerance(got, want)
 
 
 @pytest.mark.cuda

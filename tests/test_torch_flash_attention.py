@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from repro.kernels.flash_attention import attention_ref, flash_attention_pallas
 from repro.models.attention import blockwise_attention
@@ -170,3 +171,130 @@ def test_bf16_tolerance_covers_one_ulp_and_cancellation():
           <= fa_ref.tolerance(got, want)).tolist()
     assert ok == [True, False, True, True]
     assert float(fa_ref.bf16_ulp(torch.tensor([1.5]))) == 2.0 ** -7
+
+
+# --- the bf16 kernel's exact split of p (ref.split_bf16x3) -----------------
+
+SPLIT_EXACT_FROM = 2.0 ** -110  # 7.7037e-34: below, lo runs out of range
+
+
+def _split_sum(p):
+    hi, mid, lo = fa_ref.split_bf16x3(p)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    return (hi.float() + mid.float()) + lo.float()
+
+
+def _split_samples(kind):
+    gen = torch.Generator().manual_seed(7)
+    if kind == "uniform":
+        return torch.rand(200_000, generator=gen)
+    if kind == "exp":  # p = exp(s - m) for s - m down to -87
+        return torch.exp(-87.0 * torch.rand(200_000, generator=gen))
+    if kind == "tiny":
+        return torch.exp(-104.0 * torch.rand(200_000, generator=gen))
+    # 0, 1, the exactness edge and its float neighbours, fp32's extremes
+    edge = torch.tensor(SPLIT_EXACT_FROM)
+    return torch.stack([
+        torch.tensor(0.0), torch.tensor(1.0), edge,
+        torch.nextafter(edge, torch.tensor(1.0)),
+        torch.nextafter(edge, torch.tensor(0.0)),
+        torch.tensor(torch.finfo(torch.float32).tiny),
+        torch.tensor(torch.finfo(torch.float32).smallest_normal / 3),
+        torch.nextafter(torch.tensor(1.0), torch.tensor(0.0)),
+        torch.tensor(1.0 / 3.0), torch.tensor(float(np.exp(-87.0)))])
+
+
+@pytest.mark.parametrize("kind", ["uniform", "exp", "tiny", "edges"])
+def test_split_bf16x3_is_exact(kind):
+    """``(hi + mid) + lo`` equals p bit for bit for p in [2^-110, 1]
+    (including 0 and 1), and is within 1e-40 below 2^-110."""
+    p = _split_samples(kind).float()
+    got = _split_sum(p)
+    big = p >= SPLIT_EXACT_FROM
+    assert torch.equal(got[big], p[big])
+    if bool((~big).any()):
+        assert float((got[~big] - p[~big]).abs().max()) <= 1e-40
+    assert torch.equal(got[p == 0], p[p == 0])
+
+
+@settings(max_examples=300, deadline=None, database=None)
+@given(st.floats(min_value=0.0, max_value=1.0, width=32))
+def test_split_bf16x3_property(x):
+    p = torch.tensor([x], dtype=torch.float32)
+    got = _split_sum(p)
+    if x >= SPLIT_EXACT_FROM:
+        assert torch.equal(got, p)
+    else:
+        assert float((got - p).abs()) <= 1e-40
+
+
+def _split_fold_fp32(q, k, v, causal, terms=3):
+    """The bf16 kernel's tiling and split under exact fp32 sums: q·kᵀ in
+    fp32, scaled after the dot, ``-1e30`` masks, an online softmax over
+    128-key tiles up to the last row of its 128-query tile, each tile's
+    p·v as the sum of its bf16 terms (``ref.split_bf16x3``; ``terms=1``
+    keeps only ``hi``) times v, folded as ``acc = acc·corr + pv``. The
+    tensor core truncates as it sums, which this cannot reproduce: that
+    is pinned on the card (``tests/test_torch_card.py``, and the layer 35
+    check of ``chip_smoke.py``)."""
+    b, sq, h, dh = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    group = h // kvh
+    scale = 1.0 / np.sqrt(dh)
+    qf = (q.float().reshape(b, sq, kvh, group, dh).permute(0, 2, 3, 1, 4)
+          .reshape(b, kvh, group * sq, dh))
+    kf = k.float().permute(0, 2, 1, 3)
+    vf = v.float().permute(0, 2, 1, 3)
+    q_pos = torch.arange(sq).repeat(group)[:, None]
+    m = torch.full((b, kvh, group * sq, 1), fa_ref.NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    end = min(skv, -(-sq // 128) * 128) if causal else skv
+    for j0 in range(0, end, 128):
+        j1 = min(j0 + 128, skv)
+        s = (qf @ kf[:, :, j0:j1].transpose(-1, -2)) * scale
+        if causal:
+            kv_pos = torch.arange(j0, j1)[None, :]
+            s = torch.where(kv_pos <= q_pos, s, fa_ref.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        pv = torch.zeros_like(acc)
+        for term in fa_ref.split_bf16x3(p)[:terms]:
+            pv = pv + term.float() @ vf[:, :, j0:j1]
+        acc = acc * corr + pv
+        m = m_new
+    out = acc / l.clamp_min(1e-20)
+    return (out.reshape(b, kvh, group, sq, dh).permute(0, 3, 1, 2, 4)
+            .reshape(b, sq, h, dh).to(q.dtype))
+
+
+@pytest.mark.parametrize("b,sq,h,kv,dh,causal", [
+    (1, 128, 4, 4, 64, True),
+    (2, 256, 4, 2, 64, True),
+    (1, 128, 8, 1, 128, True),
+    (2, 96, 4, 4, 32, False),
+    (1, 257, 2, 2, 64, True),
+])
+def test_split_emulation_within_tolerance(b, sq, h, kv, dh, causal):
+    """The three-term split with the kernel's 128-key tile fold, summed in
+    exact fp32, stays within the unchanged ``ref.tolerance`` of
+    ``flash_attention_plain`` over the sweep's shapes (the bf16 inputs of
+    ``test_plain_equals_pallas_sweep``; the split serves bf16 only)."""
+    _, (qt, kt, vt) = _inputs(sq * h + dh, b, sq, sq, h, kv, dh, "bfloat16")
+    got = _split_fold_fp32(qt, kt, vt, causal)
+    want = fa_ref.flash_attention_plain(qt, kt, vt, causal=causal)
+    assert got.dtype == want.dtype
+    assert fa_ref.within_tolerance(got, want)
+
+
+def test_one_bf16_term_breaks_the_fp32_contract():
+    """p rounded to bf16 (what ``scaled_dot_product_attention`` does) is
+    off the fp32 contract where the three terms, under fp32 sums, are
+    not."""
+    _, (qt, kt, vt) = _inputs(11, 1, 256, 256, 4, 2, 64)
+    want = fa_ref.flash_attention_plain(qt, kt, vt)
+    assert fa_ref.within_tolerance(_split_fold_fp32(qt, kt, vt, True), want)
+    assert not fa_ref.within_tolerance(
+        _split_fold_fp32(qt, kt, vt, True, terms=1), want)
