@@ -33,8 +33,11 @@ Phases (any failed check exits non-zero before the result line):
              the inputs ``din_forward`` hands it (captured at ``serve_p99``
              and at one ``retrieval_cand`` chunk; sum and mean, with and
              without weights, fp32 and bf16; all-padding bags, ids past the
-             table, empty grids) must be bitwise equal to its plain
-             version; kernel, plain version and ``F.embedding_bag`` on the
+             table, empty grids; the copy ring's edges: bags of
+             ``LONG_LIST`` ids, the ``table[1:]`` view in bf16, bf16 d 37,
+             each call repeated for equal bits) must be bitwise equal to
+             its plain version, and ``-Xptxas -v`` must report no spills;
+             kernel, plain version and ``F.embedding_bag`` on the
              compacted valid ids are timed. Then it serves
              ``DIN_BATCHES`` batches of 512 with the counter zeroed just
              before and read just after (exactly 2 launches a batch),
@@ -48,11 +51,15 @@ Phases (any failed check exits non-zero before the result line):
              forward and backward hand it (layer 1 at d 100, layer 2 at d
              64, the first backward on the transposed table), fp32 and
              bf16, weighted or not, with ``-1`` in mid-row and all-invalid
-             rows, must be bitwise equal to its plain version; a repeated
-             backward call gives the same bits; empty grids give zeros
-             without a launch. Kernel, plain version and ``torch.sparse.mm``
-             on the CSR adjacency (cuSPARSE; the port never calls it) are
-             timed. Then ``repro_torch.launch.train`` runs
+             rows, and the copy ring's edges: lists of ``LONG_LIST`` ids,
+             the ``feat[1:]`` view in bf16, bf16 d 37, each call repeated)
+             must be bitwise equal to its plain version, and ``-Xptxas -v``
+             must report no spills; a repeated backward call gives the same
+             bits; empty grids give zeros without a launch. Kernel, plain
+             version and ``torch.sparse.mm`` on the CSR adjacency
+             (cuSPARSE; the port never calls it) are timed, and each
+             captured call's rate on the gathered bytes is logged as a
+             share of HBM's 3.35 TB/s. Then ``repro_torch.launch.train`` runs
              ``TRAIN_STEPS`` steps at that shape with the counter zeroed
              just before and read just after (exactly 9 launches a step:
              5 forward, 4 backward), finite losses, and its peak device
@@ -128,6 +135,8 @@ FLASH_PREV_MS = 218.16
 # ~0.05 from its fp32 ones at this shape (vocab cut to 8,192), so two bf16
 # runs are held to 0.125 (set before the card ran it; PERF.md, PR 14)
 LM_BF16_CPU_TOL = 0.125
+LONG_LIST = 500            # ids a list in the ring checks: longer than a ring
+LONG_LISTS = 65536         # lists of that length in segment_spmm's check
 
 
 def log(msg: str) -> None:
@@ -181,6 +190,21 @@ def time_ms(fn, *, inner: int = 20, reps: int = 25,
         end.synchronize()
         samples.append(start.elapsed_time(end) / inner)
     return statistics.median(samples)
+
+
+def check_no_spills(name: str) -> dict:
+    """Fail if ``-Xptxas -v`` reports a stack frame or spills for any
+    compiled kernel of ``name``; return the report."""
+    from repro_torch.kernels import build
+    res = build.ptxas_resources(build.build_log(name))
+    check(bool(res), f"{name}: no ptxas report in the build log")
+    bad = {fn: r for fn, r in res.items()
+           if r.get("spill_stores") or r.get("spill_loads") or r.get("stack")}
+    check(not bad, f"{name}: ptxas reports spills: {bad}")
+    regs = sorted({r["registers"] for r in res.values()})
+    log(f"{name} ptxas: {len(res)} instantiations, registers {regs}, "
+        "0 bytes of stack and spills")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -484,6 +508,34 @@ def capture_din_inputs(stack):
     return {"serve_p99": calls[:2], "retrieval_cand": calls[2:]}
 
 
+def ring_edges_embedding_bag(table, ids, weights, same, gen) -> None:
+    """``embedding_bag`` on the copy ring's edges, from one DIN call's
+    table: bags of ``LONG_LIST`` ids (longer than the ring), the view
+    ``table[1:]`` (one row in: 72 bytes in bf16), and bf16 rows of odd
+    width (d 37: staged through registers). Each call twice, equal bits."""
+    import torch
+    from repro_torch.kernels import embedding_bag as eb
+    bsz = ids.shape[0]
+    rows = table.shape[0]
+    dev = table.device
+    long_ids = torch.randint(-1, rows, (bsz, LONG_LIST), generator=gen,
+                             device=dev, dtype=torch.int32)
+    long_w = torch.randn((bsz, LONG_LIST), generator=gen, device=dev)
+    odd = torch.cat([table, table[:, :1]], 1).to(torch.bfloat16)
+    cases = {"long bags": (table, long_ids, long_w.to(table.dtype)),
+             "table[1:] bf16": (table.to(torch.bfloat16)[1:], ids,
+                                weights.to(torch.bfloat16)),
+             "bf16 d 37": (odd, ids, weights.to(torch.bfloat16))}
+    for name, (t, i, w) in cases.items():
+        for mode in ("sum", "mean"):
+            for wt in (None, w):
+                first = eb.embedding_bag(t, i, wt, mode=mode)
+                again = eb.embedding_bag(t, i, wt, mode=mode)
+                same(first, eb.embedding_bag_ref(t, i, wt, mode=mode),
+                     f"{name} {mode} weighted={wt is not None} {t.dtype}")
+                same(again, first, f"{name} {mode} repeated")
+
+
 def embedding_bag_phase(stack) -> dict:
     """Bitwise checks and timings of ``embedding_bag`` at the inputs the
     DIN path hands it; prints one timing row per captured call. Returns
@@ -535,6 +587,8 @@ def embedding_bag_phase(stack) -> dict:
                         if name == "all-padding":
                             check(not got.any(),
                                   "embedding_bag all-padding not zero")
+            if shape == "serve_p99" and dtype == torch.float32:
+                ring_edges_embedding_bag(t, ids, w, same, gen)
             before = eb.LAUNCHES.value
             for b, n_bag, d in ((0, bag, t.shape[1]), (bsz, 0, t.shape[1]),
                                 (bsz, bag, 0)):
@@ -548,7 +602,10 @@ def embedding_bag_phase(stack) -> dict:
                   "embedding_bag empty grid launched")
     log("embedding_bag == plain bitwise (fp32, bf16; sum, mean; weighted "
         "and not; din inputs at serve_p99 and retrieval_cand, padded, "
-        "all-padding, ids past the table, empty grids)")
+        "all-padding, ids past the table, empty grids; bags of "
+        f"{LONG_LIST} (longer than the ring), the table[1:] view in bf16, "
+        "bf16 d 37; each repeated with equal bits)")
+    check_no_spills("embedding_bag")
 
     rows_out = []
     for shape, calls in cap.items():
@@ -732,6 +789,35 @@ def capture_train_inputs() -> dict:
             "backward": calls[5]}
 
 
+def ring_edges_segment_spmm(ids, feat, same, gen) -> None:
+    """``segment_spmm`` on the copy ring's edges, from layer 1's inputs:
+    ``LONG_LISTS`` lists of ``LONG_LIST`` ids (longer than any ring, -1
+    anywhere), the view ``feat[1:]`` in bf16 (200 bytes in), and bf16 rows
+    of odd width (d 37: staged through registers). Each call twice, equal
+    bits."""
+    import torch
+    from repro_torch.kernels import segment_spmm as sp
+    dev = feat.device
+    m = feat.shape[0]
+    long_ids = torch.randint(-1, m, (LONG_LISTS, LONG_LIST), generator=gen,
+                             device=dev, dtype=torch.int32)
+    long_w = torch.randn((LONG_LISTS, LONG_LIST), generator=gen, device=dev)
+    w32 = torch.randn(ids.shape, generator=gen, device=dev)
+    half = feat.to(torch.bfloat16)
+    cases = {"long lists": (long_ids, feat, long_w),
+             "feat[1:] bf16": (ids, half[1:], w32.to(torch.bfloat16)),
+             "bf16 d 37": (ids, half[:, :37].contiguous(),
+                           w32.to(torch.bfloat16))}
+    for name, (i, f, w) in cases.items():
+        for wt in (None, w):
+            first = sp.segment_spmm(i, f, wt)
+            again = sp.segment_spmm(i, f, wt)
+            same(first, sp.segment_spmm_plain(i, f, wt),
+                 f"{name} weighted={wt is not None} {f.dtype}")
+            same(again, first, f"{name} repeated")
+            del first, again
+
+
 def segment_spmm_phase() -> dict:
     """Bitwise checks and timings of ``segment_spmm`` at the inputs the
     training path hands it; prints one timing row per captured call.
@@ -790,10 +876,14 @@ def segment_spmm_phase() -> dict:
     torch.cuda.synchronize()
     check(torch.equal(a, b), "repeated backward call differs")
     del a, b
+    ring_edges_segment_spmm(*cap["layer1_fwd"][:2], same, gen)
     log("segment_spmm == plain bitwise (fp32, bf16; weighted and not; "
         "layer 1, layer 2 and backward inputs at ogb_products, -1 in "
-        "mid-row, all-invalid rows, empty grids); repeated backward call "
+        "mid-row, all-invalid rows, empty grids; lists of "
+        f"{LONG_LIST} (longer than the ring), the feat[1:] view in bf16, "
+        "bf16 d 37, each repeated with equal bits); repeated backward call "
         "bitwise equal")
+    check_no_spills("segment_spmm")
 
     rows_out = []
     for name, (ids, feat, _) in cap.items():
@@ -831,13 +921,18 @@ def segment_spmm_phase() -> dict:
             "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                          >= flops / FP32_FLOPS else "operations"),
             "bytes": nbytes})
+        r = rows_out[-1]
+        r["gathered_hbm_share"] = (r["gathered_bytes"] / (r["ms"] * 1e-3)
+                                   / HBM_BYTES_PER_S)
         del adj, crow
     for r in rows_out:
         log(f"segment_spmm {r['call']} {r['ids']} x {r['feat']}: kernel "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"torch.sparse.mm {r['library_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bytes']} bytes, {r['bound_by']}); "
-            f"gathered {r['gathered_bytes']} bytes")
+            f"gathered {r['gathered_bytes']} bytes, "
+            f"{r['gathered_bytes'] / (r['ms'] * 1e-3) / 1e12:.3f} TB/s = "
+            f"{r['gathered_hbm_share']:.4f} of HBM's 3.35 TB/s")
     print(json.dumps({"segment_spmm_calls": rows_out}), flush=True)
     head = rows_out[1]  # layer 2's forward, d 64
     return {"name": "segment_spmm", "route": "cuda",

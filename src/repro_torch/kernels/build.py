@@ -24,7 +24,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -36,6 +36,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+# Hopper (H100) limits the copy plans are sized against
+SMEM_PER_SM = 233472       # 228 KB of shared memory an SM
+SMEM_PER_BLOCK = 232448    # 227 KB a block may ask for (dynamic)
+SMEM_RESERVED = 1024       # CUDA's own share of each resident block
+THREADS_PER_SM = 2048
+BLOCKS_PER_SM = 32
+COPY_WIDTHS = (16, 8, 4)   # the sizes cp.async copies, in bytes
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -164,6 +172,42 @@ def load(name: str, symbols: dict[str, list]) -> dict[str, ctypes._CFuncPtr]:
                 fn.restype = ctypes.c_int
             _libs[name] = lib
     return {sym: getattr(lib, sym) for sym in symbols}
+
+
+class CopyPlan(NamedTuple):
+    """How a gather kernel stages table rows in shared memory.
+
+    ``chunk_bytes``: the ``cp.async`` copy width (16, 8 or 4), or 0 when
+    the row's bytes or the table's address is not a multiple of 4 and the
+    kernel stages rows through registers. ``ring_rows``: slots of the
+    ring (per warp or per block, as the kernel says). ``smem_bytes``: the
+    block's dynamic shared memory. ``rows_per_block``: lists a block works
+    on at once. ``blocks_per_sm``: blocks that fit an SM at that size."""
+    chunk_bytes: int
+    ring_rows: int
+    smem_bytes: int
+    rows_per_block: int
+    blocks_per_sm: int
+
+
+def chunk_bytes(row_bytes: int, base_ptr: int) -> int:
+    """The widest ``cp.async`` size (16, 8 or 4 bytes) that divides both a
+    row's bytes and the table's address, so every row (and every 128-column
+    tile of it) starts on a chunk; 0 when none does (register staging)."""
+    for width in COPY_WIDTHS:
+        if row_bytes % width == 0 and base_ptr % width == 0:
+            return width
+    return 0
+
+
+def blocks_per_sm(smem_bytes: int, threads: int) -> int:
+    """Blocks of ``threads`` threads and ``smem_bytes`` of dynamic shared
+    memory that fit one SM at once by those two limits (0 if one does not
+    fit); registers may allow fewer, which the kernels ask CUDA about."""
+    if smem_bytes > SMEM_PER_BLOCK:
+        return 0
+    return min(SMEM_PER_SM // (smem_bytes + SMEM_RESERVED),
+               THREADS_PER_SM // threads, BLOCKS_PER_SM)
 
 
 def check_tables(kernel: str, device: torch.device, *tables: torch.Tensor

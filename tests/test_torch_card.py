@@ -160,6 +160,93 @@ def test_segment_spmm_gradient_on_card(card):
     assert torch.equal(grads[0], grads[2])
 
 
+# Edge cases of the gather-sum kernels' copy rings: (name, rows, d, lists,
+# list length, dtype, table offset in rows, id kind). "long" lists outrun
+# the ring (segment_spmm's per-warp ring holds 48-256 rows; embedding_bag's
+# d-300 ring 128 and its d-36 ring 384); offset 1 is an unaligned view
+# (feat[1:]: 200 bytes in for bf16 d 100, 72 for bf16 d 36); bf16 d 37 has
+# 74-byte rows (staged through registers); "mid" pads a random half of each
+# list anywhere; "none" is all padding; "past" draws ids past the table.
+GATHER_EDGES = [
+    ("long lists d64", 400, 64, 300, 300, torch.float32, 0, "mid"),
+    ("long lists d300", 400, 300, 200, 300, torch.float32, 0, "mid"),
+    ("long lists d36", 400, 36, 200, 500, torch.float32, 0, "mid"),
+    ("unaligned view d100", 500, 100, 300, 53, torch.bfloat16, 1, "mid"),
+    ("unaligned view d36", 500, 36, 300, 100, torch.bfloat16, 1, "mid"),
+    ("bf16 d37", 500, 37, 300, 100, torch.bfloat16, 0, "mid"),
+    ("bf16 d37 long", 500, 37, 100, 300, torch.bfloat16, 0, "past"),
+    ("mid-list padding d36", 500, 36, 300, 100, torch.float32, 0, "mid"),
+    ("mid-list padding d100", 500, 100, 300, 53, torch.float32, 0, "mid"),
+    ("all padding", 500, 64, 50, 53, torch.float32, 0, "none"),
+    ("past the table", 500, 100, 300, 53, torch.float32, 0, "past"),
+]
+
+
+def _gather_inputs(card, rows, d, lists, length, dtype, offset, kind, seed):
+    rng = np.random.default_rng(seed)
+    base = torch.from_numpy(rng.normal(size=(rows + offset, d))
+                            .astype(np.float32)).to(card, dtype)
+    table = base[offset:]
+    if offset:
+        assert table.data_ptr() != base.data_ptr() and table.is_contiguous()
+    hi = rows + 40 if kind == "past" else rows
+    ids = rng.integers(0, hi, size=(lists, length)).astype(np.int32)
+    if kind == "mid":
+        ids[rng.random(ids.shape) < 0.5] = -1
+        ids[::7] = -1
+    elif kind == "none":
+        ids[:] = -1
+    else:
+        ids[rng.random(ids.shape) < 0.2] = -3
+    w = torch.from_numpy(rng.normal(size=(lists, length)).astype(np.float32))
+    return table, torch.from_numpy(ids).to(card), w.to(card, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GATHER_EDGES, ids=[c[0] for c in GATHER_EDGES])
+def test_segment_spmm_ring_edges_on_card(card, case):
+    """``segment_spmm`` bitwise equal to its plain version on the copy
+    ring's edge cases, weighted or not, and a repeated call gives the same
+    bits (a missing wait or barrier shows as a difference between runs)."""
+    _, rows, d, lists, length, dtype, offset, kind = case
+    feat, ids, w = _gather_inputs(card, rows, d, lists, length, dtype,
+                                  offset, kind, 5)
+    before = sp_pkg.LAUNCHES.value
+    for weights in (None, w):
+        want = sp_ref.segment_spmm_plain(ids, feat, weights)
+        first = sp_ops.segment_spmm(ids, feat, weights)
+        again = sp_ops.segment_spmm(ids, feat, weights)
+        torch.cuda.synchronize()
+        assert torch.equal(first, want), weights is not None
+        assert torch.equal(again, first), weights is not None
+        if kind == "none":
+            assert not first.any()
+    assert sp_pkg.LAUNCHES.value == before + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GATHER_EDGES, ids=[c[0] for c in GATHER_EDGES])
+def test_embedding_bag_ring_edges_on_card(card, case):
+    """``embedding_bag`` bitwise equal to its plain version on the copy
+    ring's edge cases (sum and mean, weighted or not), and a repeated call
+    gives the same bits."""
+    _, rows, d, lists, length, dtype, offset, kind = case
+    table, ids, w = _gather_inputs(card, rows, d, lists, length, dtype,
+                                   offset, kind, 6)
+    before = eb_pkg.LAUNCHES.value
+    for mode in ("sum", "mean"):
+        for weights in (None, w):
+            want = eb_ref.embedding_bag_ref(table, ids, weights, mode=mode)
+            first = eb_ops.embedding_bag(table, ids, weights, mode=mode)
+            again = eb_ops.embedding_bag(table, ids, weights, mode=mode)
+            torch.cuda.synchronize()
+            assert torch.equal(first, want), (mode, weights is not None)
+            assert torch.equal(again, first), (mode, weights is not None)
+            if kind == "none":
+                assert not first.any()
+    assert eb_pkg.LAUNCHES.value == before + 8
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_equals_plain_on_card(card, dtype):
