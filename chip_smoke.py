@@ -12,13 +12,18 @@ Phases (any failed check exits non-zero before the result line):
              ``nvcc`` (one process per source, all at once), timed.
 3. kernels — at the serve path's own inputs (captured from one request of
              the default launcher stack, fp32 and bf16) and on clamped,
-             all-invalid and empty-grid cases, each kernel must be bitwise
-             equal to its plain PyTorch version. Times the kernel, the
-             plain version and one PyTorch library call computing the same
-             function (``index_select`` / ``F.embedding_bag`` on a
-             pre-concatenated table; the port never calls them) with CUDA
-             events, as medians; computes each kernel's HBM/compute bound
-             from the inputs.
+             all-invalid, -0.0-row and empty-grid cases, each kernel must
+             equal its plain PyTorch version bit for bit (compared as
+             integers, so -0.0 is not +0.0), each call twice; then a sweep
+             of both kernels' lane plans (d 16/64/128/256 in fp32 and
+             bf16, bf16 d 37, fans 1/5/33, the hot[1:] view in bf16, rows
+             of -0.0, 200,000 segments grid-stride), and ``-Xptxas -v``
+             must report no spills. Times the kernel, the plain version,
+             one PyTorch library call computing the same function
+             (``index_select`` / ``F.embedding_bag`` on a pre-concatenated
+             table; the port never calls them) and the launch floor (an
+             in-place add on one element) with CUDA events, as medians;
+             computes each kernel's HBM/compute bound from the inputs.
 4. serve   — runs the port's launcher (``repro_torch.launch.serve``) at its
              defaults on ``cuda`` twice, fused and ``--fuse-aggregate``,
              with the launch counters set to 0 just before each run and
@@ -137,6 +142,8 @@ FLASH_PREV_MS = 218.16
 LM_BF16_CPU_TOL = 0.125
 LONG_LIST = 500            # ids a list in the ring checks: longer than a ring
 LONG_LISTS = 65536         # lists of that length in segment_spmm's check
+SERVE_FANS = (1, 5, 33)    # serve kernels' sweep: 33 is over a window of 32
+GRID_STRIDE_SEGMENTS = 200_000  # more segments than the grid holds at once
 
 
 def log(msg: str) -> None:
@@ -246,11 +253,85 @@ def distinct_rows(tier, slot, tables):
                    .unique().numel()) for t, table in enumerate(tables))
 
 
+def bits(x):
+    """``x``'s bits as integers: equal bits, not equal values (-0.0 is not
+    +0.0 here)."""
+    import torch
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+
+def negative_zeros(table):
+    """Make every 7th row of ``table`` -0.0, and every 3rd value of the
+    rows after those, in place; returns ``table``."""
+    table[::7] = -0.0
+    table[1::7, ::3] = -0.0
+    return table
+
+
+def sweep_serve_kernels(gen) -> int:
+    """Both serve kernels on seeded inputs across their lane plans: d 16,
+    64, 128 and 256 in fp32 and bf16 and bf16 d 37, fans 1, 5 and
+    ``SERVE_FANS[-1]`` (longer than a window of 32 children), the hot[1:]
+    view in bf16, rows of -0.0 (a -0.0 singleton folds to +0.0 and copies
+    as -0.0), and ``GRID_STRIDE_SEGMENTS`` segments (more than the grid
+    holds at once). Each call twice; every result equal to the plain
+    version's bit for bit. Returns the number of cases."""
+    import torch
+    from repro_torch.kernels import gather_aggregate as ga
+    from repro_torch.kernels import tiered_gather as tg
+    dev = torch.device("cuda")
+    cases = [(d, dt, 0, 300, fan) for dt in (torch.float32, torch.bfloat16)
+             for d in (16, 64, 128, 256) for fan in SERVE_FANS]
+    cases += [(37, torch.bfloat16, 0, 300, fan) for fan in SERVE_FANS]
+    cases += [(d, torch.bfloat16, 1, 300, fan) for d in (16, 37, 128, 256)
+              for fan in SERVE_FANS]
+    cases += [(d, torch.float32, 0, GRID_STRIDE_SEGMENTS, 5)
+              for d in (16, 128)]
+    for d, dtype, offset, segs, fan in cases:
+        what = f"d {d} {dtype} offset {offset} S {segs} fan {fan}"
+
+        def table(rows, off=0):
+            x = torch.randn((rows + off, d), generator=gen, device=dev)
+            return negative_zeros(x.to(dtype)[off:])
+
+        hot, warm, cold = table(51, offset), table(40), table(9)
+        tier = torch.randint(0, 5, (segs, fan), generator=gen, device=dev,
+                             dtype=torch.int32)
+        tier[tier == 3] = 99
+        tier[tier == 4] = -1
+        slot = torch.randint(-2, 60, (segs, fan), generator=gen,
+                             device=dev, dtype=torch.int32)
+        tier[0], slot[0] = 99, 0
+        tier[0, 0], slot[0, 0] = 0, 7      # hot[7]: a -0.0 row, alone
+        want = ga.gather_aggregate_ref(tier, slot, hot, warm, cold)
+        first = ga.gather_aggregate(tier, slot, hot, warm, cold)
+        again = ga.gather_aggregate(tier, slot, hot, warm, cold)
+        ft, fs = tier.reshape(-1), slot.reshape(-1)
+        want_tg = tg.tiered_gather_ref(ft, fs, hot, warm)
+        first_tg = tg.tiered_gather(ft, fs, hot, warm)
+        again_tg = tg.tiered_gather(ft, fs, hot, warm)
+        torch.cuda.synchronize()
+        check(torch.equal(bits(first), bits(want))
+              and torch.equal(bits(again), bits(first)),
+              f"gather_aggregate != plain by bits ({what})")
+        check(not bits(first)[0].any(),
+              f"gather_aggregate -0.0 singleton not +0.0 ({what})")
+        check(torch.equal(bits(first_tg), bits(want_tg))
+              and torch.equal(bits(again_tg), bits(first_tg)),
+              f"tiered_gather != plain by bits ({what})")
+        check(torch.equal(bits(first_tg[0]), bits(hot[7]))
+              and bool((bits(hot[7]) != 0).all()),
+              f"tiered_gather -0.0 row not copied as -0.0 ({what})")
+    return len(cases)
+
+
 def kernel_phase(stack, fanouts, seeds) -> list[dict]:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import gather_aggregate as ga
     from repro_torch.kernels import tiered_gather as tg
+    from repro_torch.kernels.gather_aggregate import kernel as ga_kernel
+    from repro_torch.kernels.tiered_gather import kernel as tg_kernel
 
     cap = capture_serve_inputs(stack, fanouts, seeds)
     check(set(cap) == {"tiered_gather", "gather_aggregate"},
@@ -271,15 +352,20 @@ def kernel_phase(stack, fanouts, seeds) -> list[dict]:
     rand_slot = torch.randint(-5, max(hot.shape[0], warm.shape[0]) + 5, (m,),
                               generator=gen, device=dev, dtype=torch.int32)
     cases = {"serve": (tier, slot), "clamped": (rand_tier, rand_slot),
-             "all-invalid": (torch.full_like(tier, 99), slot)}
+             "all-invalid": (torch.full_like(tier, 99), slot),
+             "-0.0 rows": (tier, slot)}
     for dtype in (torch.float32, torch.bfloat16):
-        h, w = hot.to(dtype), warm.to(dtype)
         for name, (t, s) in cases.items():
+            h, w = hot.to(dtype), warm.to(dtype)
+            if name == "-0.0 rows":
+                h, w = negative_zeros(h.clone()), negative_zeros(w.clone())
             got = tg.tiered_gather(t, s, h, w)
+            again = tg.tiered_gather(t, s, h, w)
             want = tg.tiered_gather_ref(t, s, h, w)
             torch.cuda.synchronize()
-            check(torch.equal(got, want),
-                  f"tiered_gather != plain ({name}, {dtype})")
+            check(torch.equal(bits(got), bits(want))
+                  and torch.equal(bits(again), bits(got)),
+                  f"tiered_gather != plain by bits ({name}, {dtype})")
             err = max(err, float((got.float() - want.float()).abs().max()))
             if name == "all-invalid":
                 check(not got.any(), "tiered_gather all-invalid not zero")
@@ -288,8 +374,8 @@ def kernel_phase(stack, fanouts, seeds) -> list[dict]:
         check(tg.tiered_gather(z, z, h, w).shape == (0, d)
               and tg.LAUNCHES.value == before,
               "tiered_gather empty grid launched or misshaped")
-    log(f"tiered_gather == plain bitwise (fp32, bf16; serve, clamped, "
-        f"all-invalid, empty)")
+    log("tiered_gather == plain by bits (fp32, bf16; serve, clamped, "
+        "all-invalid, -0.0 rows, empty; each call repeated)")
     table = torch.cat([hot, warm, hot.new_zeros((1, d))])
     h_rows, w_rows = hot.shape[0], warm.shape[0]
     sl = slot.long()
@@ -315,7 +401,7 @@ def kernel_phase(stack, fanouts, seeds) -> list[dict]:
         "library_ms": time_ms(lambda: torch.index_select(table, 0, lib_idx)),
         "call_ms": time_ms(lambda: tg.tiered_gather_cuda(tier, slot, hot,
                                                          warm), graph=False),
-        "bytes": nbytes, "shape": [m, d]})
+        "bytes": nbytes, "shape": [m, d], "design": tg_kernel.DESIGN})
 
     # -- gather_aggregate ---------------------------------------------------
     tier, slot, hot, warm, cold = cap["gather_aggregate"]
@@ -330,15 +416,20 @@ def kernel_phase(stack, fanouts, seeds) -> list[dict]:
                               (s, fan), generator=gen, device=dev,
                               dtype=torch.int32)
     cases = {"serve": (tier, slot), "clamped": (rand_tier, rand_slot),
-             "all-invalid": (torch.full_like(tier, 99), slot)}
+             "all-invalid": (torch.full_like(tier, 99), slot),
+             "-0.0 rows": (tier, slot)}
     for dtype in (torch.float32, torch.bfloat16):
-        h, w, c = hot.to(dtype), warm.to(dtype), cold.to(dtype)
         for name, (t, sl_) in cases.items():
+            h, w, c = hot.to(dtype), warm.to(dtype), cold.to(dtype)
+            if name == "-0.0 rows":
+                h, w, c = (negative_zeros(x.clone()) for x in (h, w, c))
             got = ga.gather_aggregate(t, sl_, h, w, c)
+            again = ga.gather_aggregate(t, sl_, h, w, c)
             want = ga.gather_aggregate_ref(t, sl_, h, w, c)
             torch.cuda.synchronize()
-            check(torch.equal(got, want),
-                  f"gather_aggregate != plain ({name}, {dtype})")
+            check(torch.equal(bits(got), bits(want))
+                  and torch.equal(bits(again), bits(got)),
+                  f"gather_aggregate != plain by bits ({name}, {dtype})")
             err = max(err, float((got.float() - want.float()).abs().max()))
             if name == "all-invalid":
                 check(not got.any(), "gather_aggregate all-invalid not zero")
@@ -350,8 +441,19 @@ def kernel_phase(stack, fanouts, seeds) -> list[dict]:
                   f"gather_aggregate empty grid {shape} wrong")
         check(ga.LAUNCHES.value == before,
               "gather_aggregate empty grid launched")
-    log("gather_aggregate == plain bitwise (fp32, bf16; serve, clamped, "
-        "all-invalid, empty)")
+    log("gather_aggregate == plain by bits (fp32, bf16; serve, clamped, "
+        "all-invalid, -0.0 rows, empty; each call repeated)")
+    n_cases = sweep_serve_kernels(gen)
+    log(f"tiered_gather and gather_aggregate == plain by bits in {n_cases} "
+        "sweep cases (d 16/64/128/256 fp32 and bf16, bf16 d 37; fans "
+        f"{SERVE_FANS}; hot[1:] in bf16; rows of -0.0; "
+        f"{GRID_STRIDE_SEGMENTS} segments grid-stride; each call repeated)")
+    check_no_spills("tiered_gather")
+    check_no_spills("gather_aggregate")
+    one = torch.zeros(1, device=dev)
+    floor_ms = time_ms(lambda: one.add_(1))
+    log(f"launch floor (an in-place add on one element, CUDA graph "
+        f"replay): {floor_ms:.5f} ms")
     table = torch.cat([hot, warm, cold, hot.new_zeros((1, d))])
     h_rows, w_rows, c_rows = hot.shape[0], warm.shape[0], cold.shape[0]
     sl = slot.long()
@@ -385,13 +487,16 @@ def kernel_phase(stack, fanouts, seeds) -> list[dict]:
                                                       mode="sum")),
         "call_ms": time_ms(lambda: ga.gather_aggregate_cuda(
             tier, slot, hot, warm, cold), graph=False),
-        "bytes": nbytes, "shape": [s, fan, d]})
+        "bytes": nbytes, "shape": [s, fan, d], "design": ga_kernel.DESIGN})
     for r in results:
+        r["floor_ms"] = floor_ms
         log(f"{r['name']} device time (CUDA graph replay): kernel "
             f"{r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, library "
             f"{r['library_ms']:.5f} ms, bound {r['bound_ms']:.5f} ms "
-            f"({r['bytes']} bytes, {r['bound_by']}); eager wrapper call "
-            f"{r['call_ms']:.5f} ms")
+            f"({r['bytes']} bytes, {r['bound_by']}), launch floor "
+            f"{floor_ms:.5f} ms ({r['ms'] - floor_ms:+.5f} ms from it); "
+            f"eager wrapper call {r['call_ms']:.5f} ms; design: "
+            f"{r['design']}")
     return results
 
 
@@ -1354,7 +1459,7 @@ def main() -> None:
     # 8. summary
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("design", "tflops", "over_bound", "over_library")
+    extra = ("design", "floor_ms", "tflops", "over_bound", "over_library")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
         for r in results]}), flush=True)

@@ -17,6 +17,7 @@ Every exported C function launches on the stream it is given and returns
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -46,7 +47,8 @@ BLOCKS_PER_SM = 32
 COPY_WIDTHS = (16, 8, 4)   # the sizes cp.async copies, in bytes
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[str, dict[str, ctypes._CFuncPtr]] = {}
+_sms: dict[int, int] = {}
 
 
 class LaunchCounter:
@@ -159,19 +161,41 @@ def build_all() -> dict[str, Path]:
 
 def load(name: str, symbols: dict[str, list]) -> dict[str, ctypes._CFuncPtr]:
     """Build (if needed) and load ``name``'s library; return its exported
-    functions with ``argtypes`` set from ``symbols`` and an ``int`` result.
+    functions with ``argtypes`` set from ``symbols`` and an ``int`` result
+    (bound once: every later call returns the same dict).
     Pointers and the stream must be declared ``c_void_p`` — without
     ``argtypes`` ctypes passes Python ints as 32-bit and cuts them."""
     with _lock:
-        lib = _libs.get(name)
-        if lib is None:
+        fns = _libs.get(name)
+        if fns is None:
             lib = ctypes.CDLL(str(build([name])[name]))
+            fns = {}
             for sym, argtypes in symbols.items():
-                fn = getattr(lib, sym)
+                fn = fns[sym] = getattr(lib, sym)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            _libs[name] = lib
-    return {sym: getattr(lib, sym) for sym in symbols}
+            _libs[name] = fns
+    return fns
+
+
+def call(device: torch.device, fn: ctypes._CFuncPtr, *args) -> int:
+    """``fn(*args, stream)`` with ``device`` current and PyTorch's current
+    stream on it last; the device is switched only when another one is
+    current (the usual case costs one query)."""
+    idx = device.index
+    if torch.cuda.current_device() == idx:
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    with torch.cuda.device(idx):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of ``device`` (asked once per device)."""
+    n = _sms.get(device.index)
+    if n is None:
+        n = _sms[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
 
 
 class CopyPlan(NamedTuple):
@@ -198,6 +222,48 @@ def chunk_bytes(row_bytes: int, base_ptr: int) -> int:
         if row_bytes % width == 0 and base_ptr % width == 0:
             return width
     return 0
+
+
+class LanePlan(NamedTuple):
+    """How a latency-bound gather kernel spreads rows over a warp's lanes.
+
+    ``vec_bytes``: the width of each load and store (16, 8 or 4 bytes, or
+    one element). ``row_vectors``: vectors a row. ``lanes``: lanes a row,
+    the fewest (a power of two, at most 32) that cover it in one vector
+    each. ``rows_per_warp``: ``32 // lanes`` rows (or segments) a warp
+    takes at once. ``passes``: vectors a lane takes of each row.
+    ``blocks``: the grid, every warp of it resident at once."""
+    vec_bytes: int
+    row_vectors: int
+    lanes: int
+    rows_per_warp: int
+    passes: int
+    blocks: int
+
+
+def lane_plan(d: int, elem: int, addr: int, rows: int, sms: int,
+              warps: int, min_blocks: int) -> LanePlan:
+    """The plan for ``rows`` output rows (or segments) of ``d`` values of
+    ``elem`` bytes, where ``addr`` is every table's and the output's
+    address OR-ed together (a power of two divides each exactly when it
+    divides the OR). A warp takes ``rows_per_warp`` rows at once; blocks
+    of ``warps`` warps, at most ``min_blocks`` an SM on ``sms`` SMs (what
+    the kernel's ``__launch_bounds__`` keeps resident); more rows go
+    grid-stride."""
+    vec, nvec, lanes, per_warp, passes = _lane_widths(d, elem, addr % 16)
+    units = -(-rows // per_warp)
+    blocks = max(1, min(-(-units // warps), sms * min_blocks))
+    return LanePlan(vec, nvec, lanes, per_warp, passes, blocks)
+
+
+@functools.lru_cache(maxsize=1024)
+def _lane_widths(d: int, elem: int, align: int) -> tuple[int, ...]:
+    """:func:`lane_plan`'s widths, which depend on the address only modulo
+    16 (asked once per shape: it runs on every kernel call)."""
+    vec = chunk_bytes(d * elem, align) or elem
+    nvec = d * elem // vec
+    lanes = min(32, 1 << (nvec - 1).bit_length())
+    return vec, nvec, lanes, 32 // lanes, -(-nvec // lanes)
 
 
 def blocks_per_sm(smem_bytes: int, threads: int) -> int:

@@ -17,7 +17,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.build import (DTYPE_SUFFIX, CopyPlan,
-                                       LaunchCounter, blocks_per_sm,
+                                       LaunchCounter, blocks_per_sm, call,
                                        check_tables, chunk_bytes, load)
 from repro_torch.kernels.embedding_bag.ref import MODES
 
@@ -101,14 +101,12 @@ def embedding_bag_cuda(table: torch.Tensor, ids: torch.Tensor,
     fn = load("embedding_bag", _SYMBOLS)[
         f"embedding_bag_{DTYPE_SUFFIX[table.dtype]}"]
     plan = copy_plan(d, table.element_size(), table.data_ptr(), bag)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(ids.data_ptr(),
-                 weights.data_ptr() if weights is not None else None,
-                 table.data_ptr(), table.shape[0], out.data_ptr(), bsz, bag,
-                 d, int(weights is not None), int(mode == "mean"),
-                 plan.chunk_bytes, plan.ring_rows, plan.smem_bytes,
-                 min(bsz, MAX_GRID), stream)
+    err = call(device, fn, ids.data_ptr(),
+               weights.data_ptr() if weights is not None else None,
+               table.data_ptr(), table.shape[0], out.data_ptr(), bsz, bag, d,
+               int(weights is not None), int(mode == "mean"),
+               plan.chunk_bytes, plan.ring_rows, plan.smem_bytes,
+               min(bsz, MAX_GRID))
     if err:
         raise RuntimeError(f"embedding_bag launch failed: CUDA error {err}")
     LAUNCHES.add()

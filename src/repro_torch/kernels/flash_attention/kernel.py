@@ -15,7 +15,7 @@ import math
 
 import torch
 
-from repro_torch.kernels.build import DTYPE_SUFFIX, LaunchCounter, load
+from repro_torch.kernels.build import DTYPE_SUFFIX, LaunchCounter, call, load
 
 LAUNCHES = LaunchCounter()
 HEAD_DIMS = (16, 32, 64, 96, 128)  # the head widths the kernel is built for
@@ -88,11 +88,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out.zero_()
     fn = load("flash_attention", _SYMBOLS)[
         f"flash_attention_{DTYPE_SUFFIX[q.dtype]}"]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, sq, skv, h, kvh, dh, 1.0 / math.sqrt(dh), int(causal),
-                 stream)
+    err = call(device, fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+               out.data_ptr(), b, sq, skv, h, kvh, dh, 1.0 / math.sqrt(dh),
+               int(causal))
     if err:
         why = _LAUNCHER_ERRORS.get(err, f"CUDA error {err}")
         raise RuntimeError(f"flash_attention launch failed: {why}")

@@ -3,9 +3,13 @@
 
 Replaces ``src/repro/kernels/gather_aggregate/kernel.py::
 gather_aggregate_pallas``. Bounded by HBM bytes
-(``8·S·fan + valid_children·d·elem + S·d·elem``); one thread per column
-accumulates its segment's children in order in an fp32 register, so the
-dense child tensor is never written. See the source for the design note.
+(``8·S·fan + valid_children·d·elem + S·d·elem``), but at the serve path's
+size by the chain of round trips a segment waits on. A group of lanes owns
+a segment: the warp loads a window of 32 children's tier and slot at once,
+each lane resolves one to a row address, and the group takes them with
+shuffles and issues every child's vector loads before it folds them in
+list order into fp32 registers. :func:`copy_plan` picks the vector width,
+the lanes a segment and the grid. See the source for the design note.
 """
 from __future__ import annotations
 
@@ -13,15 +17,31 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import (DTYPE_SUFFIX, LaunchCounter,
-                                       check_addresses, check_tables, load)
+from repro_torch.kernels.build import (DTYPE_SUFFIX, LanePlan, LaunchCounter,
+                                       call, check_addresses, check_tables,
+                                       lane_plan, load, sm_count)
 
 LAUNCHES = LaunchCounter()
 
-_P, _I = ctypes.c_void_p, ctypes.c_int64
+# the kernel's constants (csrc/gather_aggregate.cu: kWarps, kMinBlocks)
+WARPS = 4
+MIN_BLOCKS = 6
+DESIGN = ("a lane group a segment; a window of 32 children's tier/slot in "
+          "one load, addresses by shuffle, every child row loaded (16-byte "
+          "vectors, 8 in flight) before the ordered fold")
+
+_P, _I, _C = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SYMBOLS = {f"gather_aggregate_{s}":
-            [_P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _P]
+            [_P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _C, _C, _C, _P]
             for s in ("f32", "bf16")}
+
+
+def copy_plan(d: int, elem: int, addr: int, segments: int,
+              sms: int) -> LanePlan:
+    """The kernel's plan for ``segments`` sums of ``d`` values of ``elem``
+    bytes; ``addr`` is the three tables' and the output's addresses OR-ed
+    together. See :func:`repro_torch.kernels.build.lane_plan`."""
+    return lane_plan(d, elem, addr, segments, sms, WARPS, MIN_BLOCKS)
 
 
 def gather_aggregate_cuda(tier: torch.Tensor, slot: torch.Tensor,
@@ -53,19 +73,20 @@ def gather_aggregate_cuda(tier: torch.Tensor, slot: torch.Tensor,
     if tier.dim() != 2:
         raise ValueError("gather_aggregate: tier/slot must be (S, fan)")
     check_tables("gather_aggregate", device, hot, warm, cold)
-    s, fan = (int(x) for x in tier.shape)
-    d = int(hot.shape[1])
+    s, fan = tier.shape
+    d = hot.shape[1]
     out = torch.empty((s, d), dtype=hot.dtype, device=device)
     if s == 0 or fan == 0 or d == 0:
         return out.zero_()
-    sym = f"gather_aggregate_{DTYPE_SUFFIX[hot.dtype]}"
-    fn = load("gather_aggregate", _SYMBOLS)[sym]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(tier.data_ptr(), slot.data_ptr(), hot.data_ptr(),
-                 hot.shape[0], warm.data_ptr(), warm.shape[0],
-                 cold.data_ptr(), cold.shape[0], out.data_ptr(), s, fan, d,
-                 stream)
+    hp, wp, cp, op = (hot.data_ptr(), warm.data_ptr(), cold.data_ptr(),
+                      out.data_ptr())
+    plan = copy_plan(d, hot.element_size(), hp | wp | cp | op, s,
+                     sm_count(device))
+    fn = load("gather_aggregate", _SYMBOLS)[
+        f"gather_aggregate_{DTYPE_SUFFIX[hot.dtype]}"]
+    err = call(device, fn, tier.data_ptr(), slot.data_ptr(), hp,
+               hot.shape[0], wp, warm.shape[0], cp, cold.shape[0], op, s,
+               fan, d, plan.vec_bytes, plan.lanes, plan.blocks)
     if err:
         raise RuntimeError(
             f"gather_aggregate launch failed: CUDA error {err}")

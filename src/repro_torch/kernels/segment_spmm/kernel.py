@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.build import (DTYPE_SUFFIX, CopyPlan,
-                                       LaunchCounter, blocks_per_sm,
+                                       LaunchCounter, blocks_per_sm, call,
                                        check_tables, chunk_bytes, load)
 
 LAUNCHES = LaunchCounter()
@@ -123,16 +123,13 @@ def segment_spmm_cuda(ids: torch.Tensor, feat: torch.Tensor,
     blocks = min(-(-units // WARPS), MAX_GRID)
     fn = load("segment_spmm", _SYMBOLS)[
         f"segment_spmm_{DTYPE_SUFFIX[feat.dtype]}"]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(ids.data_ptr(),
-                 weights.data_ptr() if weights is not None else None,
-                 feat.data_ptr(), feat.shape[0], out.data_ptr(), n, dmax, d,
-                 int(weights is not None), plan.chunk_bytes,
-                 int(whole_lines(d * feat.element_size(), feat.data_ptr(),
-                                 plan.chunk_bytes)),
-                 lane_columns(d), plan.ring_rows, plan.smem_bytes, blocks,
-                 stream)
+    err = call(device, fn, ids.data_ptr(),
+               weights.data_ptr() if weights is not None else None,
+               feat.data_ptr(), feat.shape[0], out.data_ptr(), n, dmax, d,
+               int(weights is not None), plan.chunk_bytes,
+               int(whole_lines(d * feat.element_size(), feat.data_ptr(),
+                               plan.chunk_bytes)),
+               lane_columns(d), plan.ring_rows, plan.smem_bytes, blocks)
     if err:
         raise RuntimeError(f"segment_spmm launch failed: CUDA error {err}")
     LAUNCHES.add()

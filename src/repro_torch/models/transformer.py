@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import resolve_device
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.attention import (apply_rope, decode_attention,
                                           rope_angles)
@@ -182,11 +183,12 @@ def lm_init(generator: torch.Generator, cfg: LMConfig,
 @torch.no_grad()
 def lm_from_numpy(params: dict, cfg: LMConfig, *,
                   dtype: torch.dtype = torch.float32,
-                  device: str | torch.device = "cpu") -> LM:
+                  device: str | torch.device = "cuda") -> LM:
     """The reference's ``lm_init`` dict (``embed``, ``unembed``,
     ``final_ln`` and ``layers`` of stacked ``(L, …)`` arrays, weights
-    ``(d_in, d_out)``) → :class:`LM` in ``dtype`` on ``device``."""
-    model = LM(cfg, dtype=dtype, device=device)
+    ``(d_in, d_out)``) → :class:`LM` in ``dtype`` on ``device`` (the card
+    unless the caller asks for the CPU)."""
+    model = LM(cfg, dtype=dtype, device=resolve_device(device))
 
     def put(p: torch.Tensor, arr) -> None:
         p.copy_(torch.tensor(np.asarray(arr, dtype=np.float32)))
@@ -267,8 +269,10 @@ def lm_decode_step(model: LM, token: torch.Tensor, cache: dict,
 
 def init_decode_cache(cfg: LMConfig, batch: int, max_len: int,
                       dtype: torch.dtype = CACHE_DTYPE,
-                      device: str | torch.device = "cpu") -> dict:
-    """Zeroed ``{"k", "v"}``, each ``(L, batch, max_len, KV, dh)``."""
+                      device: str | torch.device = "cuda") -> dict:
+    """Zeroed ``{"k", "v"}``, each ``(L, batch, max_len, KV, dh)``, on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

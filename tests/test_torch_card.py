@@ -73,6 +73,102 @@ def test_kernels_empty_grid_on_card(card):
     assert (tg_pkg.LAUNCHES.value, ga_pkg.LAUNCHES.value) == before
 
 
+# The serve kernels' lane plans on the card: (d, dtype, table offset in
+# rows). d 16 puts 4 lanes on a row in fp32 (2 in bf16), d 256 fp32 takes
+# two passes, bf16 d 37 has 74-byte rows (one-element vectors); offset 1
+# is the hot[1:] view (a bf16 d 37 row in: 74 bytes).
+SERVE_SWEEP = ([(d, dt, 0) for dt in (torch.float32, torch.bfloat16)
+                for d in (16, 64, 128, 256)] + [(37, torch.bfloat16, 0)]
+               + [(d, torch.bfloat16, 1) for d in (16, 37, 64, 128, 256)])
+
+
+def _bits(x):
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+
+def _serve_inputs(card, d, dtype, offset, segments, fan, seed):
+    """Tables with rows of -0.0 (whole rows, and -0.0 among other values)
+    and (tier, slot) addresses over all three tiers, pads (99, -1) and
+    slots past either end; segment 0 is one -0.0 hot row and three pads,
+    segment 1 (fan > 1) nothing but -0.0 warm rows."""
+    rng = np.random.default_rng(seed)
+
+    def table(rows, off=0):
+        x = rng.normal(size=(rows + off, d)).astype(np.float32)
+        return torch.from_numpy(x).to(card, dtype)[off:]
+
+    hot, warm, cold = table(51, offset), table(40), table(9)
+    hot[3] = -0.0
+    warm[5] = -0.0
+    cold[0] = -0.0
+    hot[7, ::3] = -0.0
+    tier = rng.choice([0, 1, 2, 99, -1], p=[.3, .3, .2, .15, .05],
+                      size=(segments, fan)).astype(np.int32)
+    slot = rng.integers(-2, 60, size=(segments, fan)).astype(np.int32)
+    tier[0], slot[0] = 99, 0
+    tier[0, 0], slot[0, 0] = 0, 3
+    if fan > 1:
+        tier[1], slot[1] = 1, 5
+    return (hot, warm, cold, torch.from_numpy(tier).to(card),
+            torch.from_numpy(slot).to(card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fan", [1, 5, 33])
+@pytest.mark.parametrize("d, dtype, offset", SERVE_SWEEP,
+                         ids=[f"{d}-{str(dt)[6:]}-off{o}"
+                              for d, dt, o in SERVE_SWEEP])
+def test_serve_kernels_sweep_bitwise_on_card(card, d, dtype, offset, fan):
+    """Both serve kernels equal their plain versions bit for bit across
+    widths, fans (33 is longer than a window of 32 children), the hot[1:]
+    view and rows of -0.0: a -0.0 singleton folds to +0.0 and copies as
+    -0.0. A repeated call gives the same bits; one launch per call."""
+    hot, warm, cold, tier, slot = _serve_inputs(card, d, dtype, offset, 300,
+                                                fan, 7 + d + fan)
+    before = tg_pkg.LAUNCHES.value, ga_pkg.LAUNCHES.value
+    want = ga_ref.gather_aggregate_ref(tier, slot, hot, warm, cold)
+    first = ga_ops.gather_aggregate(tier, slot, hot, warm, cold)
+    again = ga_ops.gather_aggregate(tier, slot, hot, warm, cold)
+    flat_t, flat_s = tier.reshape(-1), slot.reshape(-1)
+    want_tg = tg_ref.tiered_gather_ref(flat_t, flat_s, hot, warm)
+    first_tg = tg_ops.tiered_gather(flat_t, flat_s, hot, warm)
+    again_tg = tg_ops.tiered_gather(flat_t, flat_s, hot, warm)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(first), _bits(want))
+    assert torch.equal(_bits(again), _bits(first))
+    assert not _bits(first)[0].any()                  # +0.0 after the fold
+    assert torch.equal(_bits(first_tg), _bits(want_tg))
+    assert torch.equal(_bits(again_tg), _bits(first_tg))
+    assert torch.equal(_bits(first_tg[0]), _bits(hot[3]))  # -0.0 copied
+    assert (_bits(hot[3]) != 0).all()
+    assert (tg_pkg.LAUNCHES.value, ga_pkg.LAUNCHES.value) == (
+        before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 128])
+def test_serve_kernels_grid_stride_on_card(card, d):
+    """200,000 segments (1,000,000 rows for the gather): more than the
+    grid holds at once, so warps walk several units; still bit for bit."""
+    from repro_torch.kernels.gather_aggregate import kernel as ga_kernel
+    from repro_torch.kernels.tiered_gather import kernel as tg_kernel
+    s, fan = 200_000, 5
+    hot, warm, cold, tier, slot = _serve_inputs(card, d, torch.float32, 0,
+                                                s, fan, 99)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for mod, rows in ((ga_kernel, s), (tg_kernel, s * fan)):
+        plan = mod.copy_plan(d, 4, hot.data_ptr(), rows, sms)
+        assert plan.blocks * mod.WARPS * plan.rows_per_warp < rows
+    got = ga_ops.gather_aggregate(tier, slot, hot, warm, cold)
+    want = ga_ref.gather_aggregate_ref(tier, slot, hot, warm, cold)
+    flat_t, flat_s = tier.reshape(-1), slot.reshape(-1)
+    got_tg = tg_ops.tiered_gather(flat_t, flat_s, hot, warm)
+    want_tg = tg_ref.tiered_gather_ref(flat_t, flat_s, hot, warm)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(got_tg), _bits(want_tg))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_embedding_bag_equals_plain_on_card(card, dtype):

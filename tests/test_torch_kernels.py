@@ -144,6 +144,56 @@ def test_gather_aggregate_empty_and_invalid(s, fan):
     assert not out.any()
 
 
+def _bits(x):
+    """The fp32 bits of a JAX or torch array (bf16 → fp32 is exact and
+    keeps the sign of zero, so equal bits here mean equal bits there)."""
+    return _np(x).view(np.uint32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_negative_zero_rows_plain_equals_pallas_bitwise(dtype):
+    """Rows of -0.0: the fold starts at +0.0, so a singleton -0.0 row (or a
+    fan of them) sums to +0.0, while the copy keeps -0.0; the plain
+    versions agree with the Pallas kernels in interpret mode bit for bit,
+    with rows that hold -0.0 among other values too."""
+    rng = np.random.default_rng(11)
+    d, fan = 16, 3
+    (hot_j, hot_t), (warm_j, warm_t), (cold_j, cold_t) = _tables(
+        rng, dtype, 6, 5, 2, d=d)
+    neg = {"hot": 2, "warm": 4, "cold": 1}
+    jdt = DTYPES[dtype][0]
+    hot_j = hot_j.at[neg["hot"]].set(jnp.asarray(-0.0, jdt))
+    warm_j = warm_j.at[neg["warm"]].set(jnp.asarray(-0.0, jdt))
+    cold_j = cold_j.at[neg["cold"]].set(jnp.asarray(-0.0, jdt))
+    hot_j = hot_j.at[0, ::3].set(jnp.asarray(-0.0, jdt))  # mixed row
+    for t, key in ((hot_t, "hot"), (warm_t, "warm"), (cold_t, "cold")):
+        t[neg[key]] = -0.0
+    hot_t[0, ::3] = -0.0
+    assert np.array_equal(_bits(hot_t), _bits(hot_j))
+    # segments: a -0.0 singleton of each tier, a fan of -0.0 rows, the
+    # mixed row alone and among others, and an all-pad segment
+    tier = np.array([[0, 99, 99], [1, 99, 99], [2, 99, 99], [0, 1, 2],
+                     [0, 99, 99], [0, 1, 0], [99, 99, 99]], np.int32)
+    slot = np.array([[2, 0, 0], [4, 0, 0], [1, 0, 0], [2, 4, 1],
+                     [0, 0, 0], [0, 1, 3], [0, 0, 0]], np.int32)
+    args_t = (torch.from_numpy(tier), torch.from_numpy(slot), hot_t, warm_t,
+              cold_t)
+    args_j = (jnp.asarray(tier), jnp.asarray(slot), hot_j, warm_j, cold_j)
+    plain = ga_ref.gather_aggregate_ref(*args_t)
+    pallas = gather_aggregate_pallas(*args_j, interpret=True)
+    assert np.array_equal(_bits(plain), _bits(pallas))
+    assert not _bits(plain)[:4].any()           # +0.0 after the fold
+    flat = (torch.from_numpy(tier[:, 0].copy()),
+            torch.from_numpy(slot[:, 0].copy()), hot_t, warm_t)
+    plain_tg = tg_ref.tiered_gather_ref(*flat)
+    pallas_tg = tiered_gather_pallas(
+        jnp.asarray(tier[:, 0]), jnp.asarray(slot[:, 0]), hot_j, warm_j,
+        interpret=True)
+    assert np.array_equal(_bits(plain_tg), _bits(pallas_tg))
+    assert (_bits(plain_tg)[:2] == np.uint32(0x80000000)).all()  # -0.0
+    assert not _bits(plain_tg)[2].any()         # tier 2: not a copy tier
+
+
 def test_fan_sum_is_in_order_fp32():
     """``fan_sum`` adds child 0, then 1, ... in fp32 — the kernel's order."""
     rng = np.random.default_rng(0)

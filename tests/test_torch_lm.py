@@ -62,7 +62,8 @@ def _models(arch, dtype):
     np_params = jax.tree_util.tree_map(lambda x: np.asarray(x, np.float32),
                                        params)
     model = transformer.lm_from_numpy(np_params, pcfg,
-                                      dtype=getattr(torch, dtype))
+                                      dtype=getattr(torch, dtype),
+                                      device="cpu")
     return rcfg, params, pcfg, model
 
 
@@ -207,7 +208,7 @@ def test_decode_step_matches_reference(arch):
     jc = {k: c.at[:, :, :PROMPT].set(pre[k].astype(jnp.float32))
           for k, c in jc.items()}
     tc = transformer.init_decode_cache(pcfg, 2, PROMPT + 1,
-                                       dtype=torch.float32)
+                                       dtype=torch.float32, device="cpu")
     for k in ("k", "v"):
         tc[k][:, :, :PROMPT] = _t(pre[k])
     tok = np.array([[3], [7]], np.int32)
@@ -224,7 +225,8 @@ def test_decode_step_matches_reference(arch):
                                    rtol=FP32_TOL, atol=FP32_TOL)
 
     jc = ref_tf.init_decode_cache(rcfg, 2, 8, jnp.float32)
-    tc = transformer.init_decode_cache(pcfg, 2, 8, dtype=torch.float32)
+    tc = transformer.init_decode_cache(pcfg, 2, 8, dtype=torch.float32,
+                                       device="cpu")
     for t in range(3):
         step = toks[:, t:t + 1]
         want, jc = ref_tf.lm_decode_step(params, jnp.asarray(step), jc,
@@ -250,7 +252,7 @@ def test_bf16_model_matches_reference_loosely(arch):
                      .max()) <= BF16_TOL
     jc = ref_tf.init_decode_cache(rcfg, 2, PROMPT + 1)
     jc = {k: c.at[:, :, :PROMPT].set(want_cache[k]) for k, c in jc.items()}
-    tc = transformer.init_decode_cache(pcfg, 2, PROMPT + 1)
+    tc = transformer.init_decode_cache(pcfg, 2, PROMPT + 1, device="cpu")
     for k in ("k", "v"):
         tc[k][:, :, :PROMPT] = _t(want_cache[k])
     tok = np.array([[5], [9]], np.int32)
@@ -345,3 +347,30 @@ def test_launcher_defaults_and_cuda_without_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             launcher.main(["--smoke"])
+
+
+@pytest.mark.parametrize("fn", ["init_decode_cache", "lm_from_numpy"])
+def test_model_entry_points_default_to_the_card(fn):
+    """Both run on the card unless the caller asks for the CPU: the default
+    goes through ``resolve_device``, so without a card it raises, and
+    ``device="cpu"`` puts every tensor on the CPU."""
+    rcfg = _ref_smoke(ref_qwen3.CONFIG)
+    pcfg = lm_common.smoke_config(qwen3_4b.CONFIG)
+    if fn == "init_decode_cache":
+        def make(**kw):
+            cache = transformer.init_decode_cache(pcfg, 1, 4, **kw)
+            return list(cache.values())
+    else:
+        params = jax.tree_util.tree_map(
+            lambda x: np.asarray(x, np.float32),
+            ref_tf.lm_init(jax.random.key(0), rcfg))
+
+        def make(**kw):
+            return list(transformer.lm_from_numpy(params, pcfg,
+                                                  **kw).parameters())
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+    else:
+        assert all(t.device.type == "cuda" for t in make())
+    assert all(t.device.type == "cpu" for t in make(device="cpu"))
