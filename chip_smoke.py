@@ -32,6 +32,26 @@ Phases (any failed check exits non-zero before the result line):
              the two paths, and the card's ``HostExecutor`` outputs must be
              finite, of the served shape, and within 1e-4 of the port on
              the CPU for the same seed.
+4b. cold   — the launcher again at its defaults with the cold path and the
+             control loop on (``--adaptive --prefetch --gpu-cache
+             --spill-path``, control period ``COLD_ADAPT_INTERVAL``): fused,
+             ``--fuse-aggregate``, ``--gateway --priority mixed
+             --deadline-ms GATEWAY_DEADLINE_MS`` and ``--models a=sage-base
+             --models b=sage-wide``. Each run records the store's lookups
+             from the first admission on (entry, hops, outputs, and the
+             placement generation before and after each), and the fused
+             and fuse-aggregate runs add ``CHURN_STEPS`` control steps (FAP
+             on the card, migration, a prefetch refresh on the side
+             stream) beside a thread repeating recorded lookups. Every
+             recorded lookup is replayed on a pristine store (the same
+             features and original plan, no cache, no stage) and must
+             give the same integer bits. Each run must have migrated rows,
+             staged rows, cache hits, prefetch hits and launches of its
+             serve kernel; some lookups must come after a migration and,
+             with churn, some must overlap one; the gateway's outcomes
+             must partition the requests. Prints rps, p50, p99 and host
+             fetches per request beside the same run without the cold
+             path (phase 4).
 5. din     — builds the DIN recsys stack of ``repro_torch.launch.
              recsys_din --config din`` (10M-row item table placed through
              the tiered store). Kernel checks first: ``embedding_bag`` at
@@ -144,6 +164,9 @@ LONG_LIST = 500            # ids a list in the ring checks: longer than a ring
 LONG_LISTS = 65536         # lists of that length in segment_spmm's check
 SERVE_FANS = (1, 5, 33)    # serve kernels' sweep: 33 is over a window of 32
 GRID_STRIDE_SEGMENTS = 200_000  # more segments than the grid holds at once
+COLD_ADAPT_INTERVAL = 16   # control period of the cold-path runs (default 32)
+GATEWAY_DEADLINE_MS = 250  # interactive requests' deadline in the gateway run
+CHURN_STEPS = 6            # control steps beside a reader thread
 
 
 def log(msg: str) -> None:
@@ -503,7 +526,7 @@ def kernel_phase(stack, fanouts, seeds) -> list[dict]:
 # ---------------------------------------------------------------------------
 # phase 4
 # ---------------------------------------------------------------------------
-def serve_phase(results: list[dict], stack, fanouts, gen_seeds) -> None:
+def serve_phase(results: list[dict], stack, fanouts, gen_seeds) -> dict:
     import numpy as np
     import torch
     from repro_torch.graph import host_sample_dense
@@ -516,16 +539,25 @@ def serve_phase(results: list[dict], stack, fanouts, gen_seeds) -> None:
     path_kernel = {"fused": "tiered_gather",
                    "fuse_aggregate": "gather_aggregate"}
     launches = {}
+    baselines = {}
     for path, extra in (("fused", []), ("fuse_aggregate",
                                         ["--fuse-aggregate"])):
         args = launcher.parse_args(["--device", "cuda", "--requests",
                                     str(SERVE_REQUESTS), *extra])
+        run_stack = launcher.stack_from_args(args)
+        mark = FirstAdmission(run_stack[4])
         for c in counters.values():
             c.reset()
         t0 = time.perf_counter()
-        summary = launcher.serve(args)
+        with HostTimer(lookup_targets()) as timer:
+            summary = launcher.serve(args, stack=run_stack, hooks=[mark])
         wall = time.perf_counter() - t0
         counts = {k: c.value for k, c in counters.items()}
+        baselines[path] = dict(summary, host_fetches_per_request=(
+            mark.served("host_fetches") / summary["requests"]),
+            host_ms=timer.report())
+        log(f"serve[{path}] host time of the store's entries: "
+            f"{timer.report()}")
         log(f"serve[{path}]: {summary['requests']} requests, "
             f"{summary['throughput_rps']:.2f} rps, p50 "
             f"{summary['p50_ms']:.3f} ms, p99 {summary['p99_ms']:.3f} ms, "
@@ -567,11 +599,8 @@ def serve_phase(results: list[dict], stack, fanouts, gen_seeds) -> None:
         finally:
             ex.close()
 
-    defaults = launcher.parse_args([])
-    cpu_stack = launcher.build_stack(
-        nodes=defaults.nodes, avg_degree=defaults.avg_degree,
-        d_feat=defaults.d_feat, fanouts=fanouts, hot_frac=defaults.hot_frac,
-        device="cpu")
+    cpu_stack = launcher.stack_from_args(
+        launcher.parse_args(["--device", "cpu"]))
     worst = 0.0
     for i, (a, b) in enumerate(zip(host_outputs(stack),
                                    host_outputs(cpu_stack))):
@@ -582,6 +611,331 @@ def serve_phase(results: list[dict], stack, fanouts, gen_seeds) -> None:
     check(worst <= CPU_TOL, f"card vs CPU max |diff| {worst:.3g} > {CPU_TOL}")
     log(f"card HostExecutor outputs within {CPU_TOL} of the CPU port "
         f"(max |diff| {worst:.3g})")
+    return baselines
+
+
+# ---------------------------------------------------------------------------
+# phase 4b
+# ---------------------------------------------------------------------------
+class HostTimer:
+    """Host-clock time of named methods, patched on their classes while the
+    context is open (every thread's calls count)."""
+
+    def __init__(self, targets):
+        import threading
+        self.targets = list(targets)
+        self.times: dict = {}
+        self._lock = threading.Lock()
+        self._saved = []
+
+    def _timed(self, key, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                with self._lock:
+                    self.times.setdefault(key, []).append(
+                        time.perf_counter() - t0)
+        return call
+
+    def __enter__(self):
+        for cls, name in self.targets:
+            fn = getattr(cls, name)
+            self._saved.append((cls, name, fn))
+            setattr(cls, name,
+                    self._timed(f"{cls.__name__}.{name}", fn))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in reversed(self._saved):
+            setattr(cls, name, fn)
+        self._saved.clear()
+
+    def report(self) -> dict:
+        """{method: {calls, total_ms, p50_ms}}."""
+        with self._lock:
+            return {k: {"calls": len(v), "total_ms": sum(v) * 1e3,
+                        "p50_ms": statistics.median(v) * 1e3}
+                    for k, v in sorted(self.times.items())}
+
+
+def lookup_targets():
+    from repro_torch.core import TieredFeatureStore
+    return [(TieredFeatureStore, "lookup_hops"),
+            (TieredFeatureStore, "lookup_aggregate")]
+
+
+def cold_targets():
+    from repro_torch.core import GPUFeatureCache, Prefetcher
+    from repro_torch.core import TieredFeatureStore
+    from repro_torch.serving import AdaptiveController
+    return lookup_targets() + [
+        (AdaptiveController, "step"), (AdaptiveController, "target_plan"),
+        (TieredFeatureStore, "swap_assignments"),
+        (TieredFeatureStore, "promote_misses"),
+        (GPUFeatureCache, "query"), (GPUFeatureCache, "replace"),
+        (Prefetcher, "refresh")]
+
+
+class FirstAdmission:
+    """Engine hook: the store's counters when the first request is admitted
+    (after calibration and warm-up), so a run's counters per request count
+    serving alone."""
+
+    def __init__(self, store):
+        self.store = store
+        self.at_start = None
+
+    def on_admit(self, name, seeds, model=""):
+        if self.at_start is None:
+            self.at_start = self.store.snapshot_stats()
+
+    def on_batch_complete(self, name, seeds, latency_s, model=""):
+        pass
+
+    def served(self, key: str) -> int:
+        return self.store.snapshot_stats()[key] - self.at_start[key]
+
+
+class LookupRecorder(FirstAdmission):
+    """Records the store's lookups from the first admission on, as (entry,
+    hops, outputs, generation before, generation after, migrations
+    before): the generation counts migrations and stage publications."""
+
+    def __init__(self, store):
+        import threading
+        super().__init__(store)
+        self.calls: list = []
+        self.generation = 0
+        self.migrations = 0
+        self.staged = []
+        self._lock = threading.Lock()
+        self.recording = False
+        for name in ("lookup_hops", "lookup_aggregate"):
+            setattr(store, name, self._recorded(name, getattr(store, name)))
+        swap, publish = store.swap_assignments, store.publish_stage
+
+        def swap_assignments(pairs):
+            moved = swap(pairs)
+            with self._lock:
+                self.generation += 1
+                self.migrations += 1
+            return moved
+
+        def publish_stage(stage_slot, stage_rows):
+            publish(stage_slot, stage_rows)
+            with self._lock:
+                self.generation += 1
+                if stage_slot is not None:
+                    self.staged.append(int((stage_slot >= 0).sum()))
+
+        store.swap_assignments = swap_assignments
+        store.publish_stage = publish_stage
+
+    def on_admit(self, name, seeds, model=""):
+        super().on_admit(name, seeds, model)
+        self.recording = True
+
+    def _recorded(self, name, fn):
+        def call(hops, **kw):
+            gen0, mig0 = self.generation, self.migrations
+            out = fn(hops, **kw)
+            if self.recording:
+                flat = (list(out[0]) + [out[1]] if name == "lookup_aggregate"
+                        else list(out))
+                entry = (name, [h.clone() for h in hops],
+                         [o.clone() for o in flat], gen0, self.generation,
+                         mig0)
+                with self._lock:
+                    self.calls.append(entry)
+            return out
+        return call
+
+
+def replay_bitwise(calls, pristine) -> int:
+    """Replay recorded lookups on a pristine store (original plan, no cache,
+    no stage); every output must equal the recorded one as integer bits.
+    Returns the calls replayed."""
+    for i, (name, hops, outs, *_) in enumerate(calls):
+        got = getattr(pristine, name)(hops)
+        flat = list(got[0]) + [got[1]] if name == "lookup_aggregate" \
+            else list(got)
+        check(len(flat) == len(outs), f"replay {i}: {len(flat)} outputs")
+        for k, (a, b) in enumerate(zip(outs, flat)):
+            check(a.shape == b.shape and bits(a).equal(bits(b)),
+                  f"replay {i} ({name}) output {k}: bits differ from the "
+                  "pristine store's")
+    return len(calls)
+
+
+def churn(store, stack, fanouts, calls, steps: int) -> int:
+    """Control steps (FAP on the card, migration, prefetch refresh on the
+    side stream) while a reader thread repeats recorded lookups on the
+    same store; the recorder keeps recording. Returns the reader's calls."""
+    import threading
+    import numpy as np
+    from repro_torch.core import Prefetcher
+    from repro_torch.serving import AdaptiveConfig, AdaptiveController
+    graph, _, psgs, fap, _, _, _ = stack
+    ctl = AdaptiveController(graph, fanouts, store, psgs_table=psgs,
+                             config=AdaptiveConfig(rows_per_step=512))
+    pf = Prefetcher(store, budget=1024)
+    ctl.attach_prefetcher(pf)
+    hot = np.argsort(fap)[:512]        # the coldest nodes turn hot
+    stop, seen, errors = threading.Event(), [0], []
+    sample = calls[:8]
+
+    def reader():
+        try:
+            while not stop.is_set():
+                for name, hops, *_ in sample:
+                    getattr(store, name)(hops)
+                    seen[0] += 1
+        except Exception as exc:   # surfaced below, never swallowed
+            errors.append(exc)
+
+    t = threading.Thread(target=reader)
+    t.start()
+    try:
+        for _ in range(steps):
+            ctl.on_admit("churn", np.repeat(hot, 4))
+            ctl.step()
+    finally:
+        stop.set()
+        t.join(timeout=120)
+        pf.close()
+    check(not t.is_alive(), "churn reader still running after 120 s")
+    check(not errors, f"churn reader raised {errors!r}")
+    return seen[0]
+
+
+def cold_path_phase(fanouts, baselines: dict) -> None:
+    """The serve path with the cold path and control loop on, through the
+    launcher at its default size: fused, fuse-aggregate, gateway, models."""
+    import dataclasses
+    import shutil
+    from repro_torch.core import TieredFeatureStore
+    from repro_torch.kernels import gather_aggregate as ga
+    from repro_torch.kernels import tiered_gather as tg
+    from repro_torch.launch import serve as launcher
+
+    counters = {"tiered_gather": tg.LAUNCHES, "gather_aggregate": ga.LAUNCHES}
+    spill_dir = ROOT / "build" / "spill"
+    spill_dir.mkdir(parents=True, exist_ok=True)
+    cold = ["--adaptive", "--prefetch", "--gpu-cache",
+            "--adapt-interval", str(COLD_ADAPT_INTERVAL)]
+    runs = (("fused", [], "tiered_gather"),
+            ("fuse_aggregate", ["--fuse-aggregate"], "gather_aggregate"),
+            ("gateway", ["--gateway", "--priority", "mixed", "--deadline-ms",
+                         str(GATEWAY_DEADLINE_MS)], "tiered_gather"),
+            ("models", ["--models", "a=sage-base", "--models",
+                        "b=sage-wide"], "tiered_gather"))
+    log(f"cold path: {' '.join(cold)} (adapt interval cut from 32 to "
+        f"{COLD_ADAPT_INTERVAL} batches so a {SERVE_REQUESTS}-request run "
+        "takes more control steps)")
+    try:
+        for path, extra, kernel in runs:
+            t0 = time.perf_counter()
+            args = launcher.parse_args(
+                ["--device", "cuda", "--requests", str(SERVE_REQUESTS),
+                 "--spill-path", str(spill_dir / f"{path}.spill"),
+                 *cold, *extra])
+            stack = launcher.stack_from_args(args)
+            store = stack[4]
+            plan0 = dataclasses.replace(
+                store.plan, tier=store.plan.tier.copy(),
+                slot=store.plan.slot.copy(),
+                pod_owner=store.plan.pod_owner.copy(),
+                device_owner=store.plan.device_owner.copy())
+            timer = HostTimer(cold_targets())
+            with timer:
+                rec = LookupRecorder(store)
+                for c in counters.values():
+                    c.reset()
+                summary = launcher.serve(args, stack=stack, hooks=[rec])
+            counts = {k: c.value for k, c in counters.items()}
+            stats = store.snapshot_stats()
+            check(summary["requests"] > 0, f"cold[{path}] served nothing")
+            # per request served: the gateway's shed requests do no lookup
+            per_req = rec.served("host_fetches") / summary["requests"]
+            log(f"cold[{path}]: {summary['requests']} requests, "
+                f"{summary['throughput_rps']:.2f} rps, p50 "
+                f"{summary['p50_ms']:.3f} ms, p99 {summary['p99_ms']:.3f} "
+                f"ms, host_fetches/request {per_req:.3f}, launches "
+                f"{counts}, migrated_rows {store.migrated_rows}, promoted "
+                f"{store.promoted_rows}, staged {rec.staged}, store "
+                f"{stats}, adaptation {summary.get('adaptation')}, cache "
+                f"{summary.get('gpu_cache')}")
+            log(f"cold[{path}] host time (calibration and warm-up "
+                f"included): {timer.report()}")
+            check(counts[kernel] > 0, f"cold[{path}] never launched {kernel}")
+            check(store.migrated_rows > 0, f"cold[{path}]: nothing migrated")
+            check(max(rec.staged, default=0) > 0,
+                  f"cold[{path}]: nothing staged")
+            check(stats["cache_hits"] > 0, f"cold[{path}]: no cache hit")
+            check(stats["prefetch_hits"] > 0, f"cold[{path}]: no prefetch hit")
+            if path == "gateway":
+                gw = summary["gateway"]
+                check(gw["completed"] + gw["shed_window"]
+                      + gw["shed_deadline"] == SERVE_REQUESTS,
+                      f"gateway outcome partition broken: {gw}")
+                check(gw["completed"] > 0, "gateway completed nothing")
+                log(f"cold[gateway]: partition holds: {gw['completed']} "
+                    f"completed + {gw['shed_window']} shed_window + "
+                    f"{gw['shed_deadline']} shed_deadline = "
+                    f"{SERVE_REQUESTS}; classes {summary['classes']}")
+            else:
+                check(summary["requests"] == SERVE_REQUESTS,
+                      f"cold[{path}] answered {summary['requests']}")
+            if path == "models":
+                check(set(summary["models"]) == {"a", "b"},
+                      f"models served {sorted(summary['models'])}")
+            served_calls = len(rec.calls)
+            migrated = store.migrated_rows
+            check(served_calls > 0, f"cold[{path}]: no lookup recorded")
+            churned = 0
+            if path in ("fused", "fuse_aggregate"):
+                churned = churn(store, stack, fanouts, rec.calls,
+                                CHURN_STEPS)
+            calls = rec.calls
+            straddled = sum(g0 != g1 for *_, g0, g1, _ in calls)
+            after = sum(m0 > 0 for *_, m0 in calls)
+            check(after > 0, f"cold[{path}]: no lookup after a migration")
+            if path in ("fused", "fuse_aggregate"):
+                check(straddled > 0, f"cold[{path}]: no lookup overlapped "
+                      "a migration or a stage publication")
+            pristine = TieredFeatureStore.build(stack[1], plan0,
+                                                device="cuda")
+            n = replay_bitwise(calls, pristine)
+            log(f"cold[{path}]: {n} lookups replayed bitwise on a pristine "
+                f"store ({served_calls} while serving, {n - served_calls} "
+                f"in {CHURN_STEPS if churned else 0} churn steps beside "
+                f"{churned} reader calls; {after} after a migration, "
+                f"{straddled} overlapping a migration or a stage "
+                f"publication) in {time.perf_counter() - t0:.1f} s")
+            base = baselines.get(path if path in baselines else "fused")
+            print(json.dumps({
+                "cold_path": path, "requests": summary["requests"],
+                "throughput_rps": summary["throughput_rps"],
+                "p50_ms": summary["p50_ms"], "p99_ms": summary["p99_ms"],
+                "host_fetches_per_request": per_req,
+                "without": {k: base[k] for k in (
+                    "throughput_rps", "p50_ms", "p99_ms",
+                    "host_fetches_per_request")},
+                "launches": counts, "migrated_rows": migrated,
+                "churn_migrated_rows": store.migrated_rows - migrated,
+                "staged_rows": max(rec.staged),
+                "cache_hits": stats["cache_hits"],
+                "prefetch_hits": stats["prefetch_hits"],
+                "replayed": n, "straddled": straddled,
+                "host_ms": {k: v["total_ms"]
+                            for k, v in timer.report().items()},
+                "host_ms_without": {k: v["total_ms"] for k, v in
+                                    base["host_ms"].items()}}), flush=True)
+            del rec, stack, store, pristine, calls
+    finally:
+        shutil.rmtree(spill_dir, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1409,18 +1763,20 @@ def main() -> None:
 
     # 3. kernels at the serve path's inputs
     from repro_torch.launch import serve as launcher
-    fanouts = (10, 5)
     defaults = launcher.parse_args([])
-    stack = launcher.build_stack(
-        nodes=defaults.nodes, avg_degree=defaults.avg_degree,
-        d_feat=defaults.d_feat, fanouts=fanouts, hot_frac=defaults.hot_frac,
-        device="cuda")
+    fanouts = launcher.fanouts_of(defaults)
+    stack = launcher.stack_from_args(defaults)
     gen = stack[5]
     gen_seeds = [r.seeds for r in gen.stream(8, defaults.batch)]
     results = kernel_phase(stack, fanouts, gen_seeds[0])
 
     # 4. serve
-    serve_phase(results, stack, fanouts, gen_seeds)
+    baselines = serve_phase(results, stack, fanouts, gen_seeds)
+    t0 = time.perf_counter()
+    cold_path_phase(fanouts, baselines)
+    log(f"cold path phase in {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # 5. din
     from repro_torch.launch import recsys_din

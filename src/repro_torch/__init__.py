@@ -1,9 +1,10 @@
 """PyTorch/CUDA port of the Quiver serving system for one NVIDIA H100.
 
 The package mirrors ``src/repro`` module for module (``graph``, ``core``,
-``kernels``, ``models``, ``configs``, ``serving``, ``launch``) and imports
-only ``torch``, numpy and the standard library: nothing of JAX and nothing
-of the ``repro`` reference package, so it runs where JAX is absent. The
+``kernels``, ``models``, ``configs``, ``serving``, ``launch``,
+``testing``) and imports only ``torch``, numpy and the standard library:
+nothing of JAX and nothing of the ``repro`` reference package, so it runs
+where JAX is absent. The
 Pallas kernels of the ported paths (``tiered_gather`` and
 ``gather_aggregate`` for GNN serving, ``embedding_bag`` for DIN serving,
 ``segment_spmm`` for GIN training, ``flash_attention`` for LM prefill)

@@ -1,5 +1,6 @@
 """Workload-aware feature placement (paper §5.2): numpy copy of the
-reference's ``core/placement.py`` (``quiver_placement`` and its types).
+reference's ``core/placement.py`` (``quiver_placement``, its types, and
+``migration_pairs`` for serve-time re-placement).
 
 Tiers: HOT rows are replicated in every device's memory, WARM rows are
 partitioned across devices, HOST rows live in host RAM and DISK rows in
@@ -163,3 +164,49 @@ def quiver_placement(fap: np.ndarray, topo: TopologySpec, *,
                          host_rows_per_pod=topo.rows_host, name=name)
     plan.validate()
     return plan
+
+
+# ---------------------------------------------------------------------------
+# Online re-placement (serve-time adaptation)
+# ---------------------------------------------------------------------------
+def migration_pairs(current_tier: np.ndarray, target_tier: np.ndarray,
+                    score: np.ndarray, *, budget: int
+                    ) -> list[tuple[int, int]]:
+    """Plan one bounded migration step toward ``target_tier``.
+
+    Returns up to ``budget`` disjoint ``(promote, demote)`` node pairs:
+    ``promote`` currently sits in a colder tier than its target, ``demote``
+    occupies the target tier but belongs colder. Swapping the two complete
+    (tier, slot, owner) assignments preserves every per-tier count and
+    capacity invariant, so a plan stays valid mid-migration. Each swap puts
+    the promoted node in its final tier; the demoted node inherits the
+    promoted node's old tier, which may still differ from its own target —
+    later steps converge it (3-cycles resolve over multiple steps).
+
+    ``score`` (typically the fresh FAP) orders candidates: hottest promotions
+    and coldest demotions first, so a truncated budget moves the most
+    valuable rows.
+    """
+    cur = np.asarray(current_tier)
+    tgt = np.asarray(target_tier)
+    assert cur.shape == tgt.shape
+    pairs: list[tuple[int, int]] = []
+    used: set[int] = set()
+    for t in (TIER_HOT, TIER_WARM, TIER_HOST):
+        if len(pairs) >= budget:
+            break
+        want_in = np.flatnonzero((tgt == t) & (cur > t))
+        leaving = np.flatnonzero((cur == t) & (tgt > t))
+        want_in = [int(i) for i in want_in[np.argsort(-score[want_in],
+                                                      kind="stable")]
+                   if int(i) not in used]
+        leaving = [int(i) for i in leaving[np.argsort(score[leaving],
+                                                      kind="stable")]
+                   if int(i) not in used]
+        for a, b in zip(want_in, leaving):
+            pairs.append((a, b))
+            used.add(a)
+            used.add(b)
+            if len(pairs) >= budget:
+                break
+    return pairs

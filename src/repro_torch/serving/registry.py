@@ -1,14 +1,24 @@
 """Serving registry: one engine, N models over shared state (numpy port of
 the reference's ``serving/registry.py``). The single-model engine API is
-the 1-entry special case (:meth:`ModelRegistry.single`), which is the only
-one the port's launcher builds.
+the 1-entry special case (:meth:`ModelRegistry.single`);
+:func:`build_model_entry` builds and calibrates one model's host + device
+executors over the shared store (the launcher's ``--models`` path).
+
+Shared across models: the graph, the ``TieredFeatureStore`` (one copy of
+every feature row), the admission window and the ``FrequencySketch``.
+Per model: ``infer_fn``, executors, calibrated ``LatencyCurve``s, the
+``CostModelRouter`` and the metrics breakdown.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Iterable, Iterator, Mapping, Optional
+from typing import (Any, Callable, Iterable, Iterator, Mapping, Optional,
+                    Sequence)
 
-from repro_torch.serving.executors import Executor
+import numpy as np
+
+from repro_torch.serving.executors import DeviceExecutor, Executor, HostExecutor
+from repro_torch.serving.router import CostModelRouter, calibrate_executors
 
 #: Model tag used when the caller never mentions models (single-model API).
 DEFAULT_MODEL = "default"
@@ -144,3 +154,64 @@ class ModelRegistry:
 
     def __repr__(self) -> str:
         return f"ModelRegistry({self.names})"
+
+
+def build_model_entry(name: str, *, graph, store, fanouts: Sequence[int],
+                      infer_fn: Callable, psgs_table: np.ndarray,
+                      policy: str = "latency_preferred", capacity: int = 2,
+                      max_batch: int = 128, fused: bool = True,
+                      rng_seed: int = 0,
+                      calibration_batches: Optional[Sequence[np.ndarray]] = None,
+                      calibration_repeats: int = 2,
+                      load_aware: bool = False) -> ModelEntry:
+    """Build one model's host+device executor pair against a *shared* store,
+    calibrate it, and wrap the result in a :class:`ModelEntry`.
+
+    This is the recipe ``launch/serve.py --models`` uses; callers with
+    extra executors or pre-fit curves assemble the entry by hand instead.
+    The executors run on the store's device.
+
+    Args:
+        name: model tag (``ModelEntry.name``).
+        graph: CSR topology shared by every model.
+        store: shared ``TieredFeatureStore`` the executors read.
+        fanouts: per-layer sampling fanouts for this model.
+        infer_fn: this model's inference callable
+            (``infer_fn(hop_feats, hop_ids) -> (B, d_out)``).
+        psgs_table: ``(N,)`` per-seed PSGS table (routing x-coordinate).
+        policy: routing policy for the model's ``CostModelRouter``.
+        capacity: worker lanes per executor.
+        max_batch: device executor static shape (chunking bound).
+        fused: fused feature-collection path flag for both executors.
+        rng_seed: sampling RNG seed for the executors.
+        calibration_batches: probe batches for ``calibrate_executors``;
+            defaults to 6 PSGS-spread slices of the node set.
+        calibration_repeats: steady-state repeats per probe batch.
+        load_aware: forwarded to the model's router.
+
+    Returns:
+        A fully calibrated :class:`ModelEntry` ready for
+        ``ModelRegistry.add``.
+    """
+    executors: dict[str, Executor] = {
+        "host": HostExecutor(graph, store, fanouts, infer_fn,
+                             capacity=capacity, psgs_table=psgs_table,
+                             rng_seed=rng_seed, fused=fused),
+        "device": DeviceExecutor(graph.device_arrays(store.device), store,
+                                 fanouts, infer_fn, max_batch=max_batch,
+                                 capacity=capacity, psgs_table=psgs_table,
+                                 rng_seed=rng_seed, fused=fused),
+    }
+    if calibration_batches is None:
+        order = np.argsort(psgs_table)
+        n = order.size
+        calibration_batches = [
+            order[int(q * n):][:max(min(max_batch, 32), 4)].astype(np.int64)
+            for q in np.linspace(0.05, 0.95, 6)]
+    curves = calibrate_executors(executors, calibration_batches, psgs_table,
+                                 repeats=calibration_repeats)
+    router = CostModelRouter.from_curves(psgs_table, curves, policy,
+                                         executors=executors,
+                                         load_aware=load_aware)
+    return ModelEntry(name=name, executors=executors, router=router,
+                      infer_fn=infer_fn)

@@ -13,8 +13,10 @@ Fig. 6(b) select which statistic each executor is judged by:
 
 :class:`CostModelRouter` sends a batch to the executor whose
 policy-selected curve is lowest at the batch's accumulated PSGS; with two
-executors this is the paper's single-threshold rule.
-:class:`StaticScheduler` is the always-one-executor baseline.
+executors this is the paper's single-threshold rule, which
+:class:`HybridScheduler` keeps as such (a PSGS threshold from a binary
+:class:`CalibrationResult`). :class:`StaticScheduler` is the
+always-one-executor baseline.
 """
 from __future__ import annotations
 
@@ -120,6 +122,45 @@ class LatencyCurve:
         return self.eval_max(q) if stat == "max" else self.eval_avg(q)
 
 
+@dataclasses.dataclass
+class CalibrationResult:
+    """Binary host/device calibration (the paper's Fig. 6 setting)."""
+
+    host: LatencyCurve
+    device: LatencyCurve
+
+    def _cross(self, f_host: Callable, f_dev: Callable) -> float:
+        lo = min(self.host.psgs.min(), self.device.psgs.min())
+        hi = max(self.host.psgs.max(), self.device.psgs.max())
+        grid = np.linspace(lo, hi, 512)
+        diff = f_host(grid) - f_dev(grid)
+        sign = np.signbit(diff)
+        flips = np.flatnonzero(sign[1:] != sign[:-1])
+        if flips.size == 0:
+            # no intersection: host always faster → +inf threshold (never use
+            # device); device always faster → 0 (always device)
+            return float("inf") if diff[-1] < 0 else 0.0
+        i = flips[0]
+        # linear interpolation of the crossing, clamped to the measured range
+        x0, x1, d0, d1 = grid[i], grid[i + 1], diff[i], diff[i + 1]
+        denom = d1 - d0
+        if abs(denom) < 1e-15:
+            return float(x0)
+        return float(np.clip(x0 + (x1 - x0) * (0 - d0) / denom, lo, hi))
+
+    def threshold(self, policy: str) -> float:
+        h, d = self.host, self.device
+        if policy == "cpu_preferred":
+            return self._cross(h.eval_max, d.eval_avg)
+        if policy == "gpu_preferred":
+            return self._cross(h.eval_avg, d.eval_max)
+        if policy in ("latency_preferred", "strict"):
+            return self._cross(h.eval_max, d.eval_max)
+        if policy in ("throughput_preferred", "loose"):
+            return self._cross(h.eval_avg, d.eval_avg)
+        raise ValueError(f"unknown policy {policy!r}")
+
+
 def calibrate_executors(executors: Mapping[str, Callable] | Sequence[Executor],
                         batches: Sequence[np.ndarray],
                         psgs_table: np.ndarray, *, repeats: int = 3,
@@ -150,6 +191,18 @@ def calibrate_executors(executors: Mapping[str, Callable] | Sequence[Executor],
                 ps.append(q)
         curves[name] = LatencyCurve.fit(ps, ls, tail=tail)
     return curves
+
+
+def calibrate(host_run: Callable[[np.ndarray], None],
+              device_run: Callable[[np.ndarray], None],
+              batches: Sequence[np.ndarray], psgs_table: np.ndarray,
+              *, repeats: int = 3, warmup: int = 1,
+              tail: float = 1.0) -> CalibrationResult:
+    """Binary special case kept for the paper's Fig. 6 experiments."""
+    curves = calibrate_executors({"host": host_run, "device": device_run},
+                                 batches, psgs_table, repeats=repeats,
+                                 warmup=warmup, tail=tail)
+    return CalibrationResult(host=curves["host"], device=curves["device"])
 
 
 class CostModelRouter:
@@ -254,6 +307,15 @@ class CostModelRouter:
             r.register(name, curve, kind=kind, executor=executor)
         return r
 
+    @staticmethod
+    def from_calibration(psgs_table: np.ndarray, calib: CalibrationResult,
+                         policy: str = "latency_preferred"
+                         ) -> "CostModelRouter":
+        """The 2-executor special case: host+device curves from a binary
+        calibration — routing equals the PSGS-threshold rule."""
+        return CostModelRouter.from_curves(
+            psgs_table, {"host": calib.host, "device": calib.device}, policy)
+
     # -- routing -------------------------------------------------------------
     def batch_cost(self, seeds: np.ndarray) -> float:
         """Accumulated PSGS of a batch (``-1`` padding ignored) — the
@@ -321,7 +383,7 @@ class CostModelRouter:
         Returns:
             The crossing PSGS, ``0.0`` when ``b`` is cheaper everywhere and
             ``inf`` when ``a`` is (mirroring
-            the paper's binary threshold). Load-aware scaling is ignored
+            ``CalibrationResult.threshold``). Load-aware scaling is ignored
             — the cut-point describes the calibrated curves, not the
             instantaneous queue state.
 
@@ -378,6 +440,31 @@ class CostModelRouter:
                 best, best_e = name, e
         self.routed[best] += 1
         return best
+
+
+class HybridScheduler:
+    """Binary PSGS-threshold routing — the paper's scheduler, kept as the
+    2-executor special case of :class:`CostModelRouter`."""
+
+    def __init__(self, psgs_table: np.ndarray, threshold: float,
+                 policy: str = "latency_preferred"):
+        self.psgs_table = psgs_table
+        self.threshold = float(threshold)
+        self.policy = policy
+        self.routed = {"host": 0, "device": 0}
+
+    @staticmethod
+    def from_calibration(psgs_table: np.ndarray, calib: CalibrationResult,
+                         policy: str = "latency_preferred") -> "HybridScheduler":
+        return HybridScheduler(psgs_table, calib.threshold(policy), policy)
+
+    def batch_cost(self, seeds: np.ndarray) -> float:
+        return _accumulated_psgs(self.psgs_table, seeds)
+
+    def route(self, seeds: np.ndarray) -> str:
+        dest = "host" if self.batch_cost(seeds) < self.threshold else "device"
+        self.routed[dest] += 1
+        return dest
 
 
 class StaticScheduler:

@@ -441,3 +441,120 @@ def test_lm_prefill_card_matches_cpu(card):
     assert fa_pkg.LAUNCHES.value == before + cfg.n_layers
     assert float((got.cpu() - want).abs().max()) <= 1e-4
     assert cache["k"].shape == want_cache["k"].shape
+
+
+def _cold_path_stores(card, n=4000, d=64):
+    """A card store and a CPU store over the same features and plan."""
+    from repro_torch.core import (TieredFeatureStore, TopologySpec,
+                                  quiver_placement)
+    rng = np.random.default_rng(0)
+    feats = rng.normal(size=(n, d)).astype(np.float32)
+    topo = TopologySpec(num_pods=1, devices_per_pod=1, rows_per_device=1000,
+                        rows_host=2000, hot_replicate_fraction=0.25)
+    fap = rng.random(n)
+    stores = [TieredFeatureStore.build(feats, quiver_placement(fap, topo),
+                                       device=dev) for dev in (card, "cpu")]
+    return feats, fap, stores
+
+
+@pytest.mark.cuda
+def test_cold_path_card_matches_cpu(card):
+    """Cache, stage (uploaded on the side stream) and swaps on the card:
+    lookups equal the CPU store's bit for bit, counter for counter."""
+    from repro_torch.core import GPUFeatureCache, Prefetcher
+    feats, fap, (dev, cpu) = _cold_path_stores(card)
+    n = feats.shape[0]
+    pfs = []
+    for s in (dev, cpu):
+        s.attach_cache(GPUFeatureCache.for_store(s, 256))
+        pf = Prefetcher(s, budget=512)
+        pf.refresh(scores=fap)
+        pfs.append(pf)
+    assert dev._stage[1].device.type == card.type
+    assert dev.staged_rows() == 512
+    rng = np.random.default_rng(1)
+    hot = np.flatnonzero(dev.tier_np == 0)
+    cold = np.flatnonzero(dev.tier_np >= 2)
+    for step in range(6):
+        hops = [rng.integers(-1, n, s).astype(np.int32) for s in (32, 320,
+                                                                  1600)]
+        seen = []
+        for s in (dev, cpu):
+            hops_s = [torch.from_numpy(h).to(s.device) for h in hops]
+            feats_a, agg = s.lookup_aggregate(hops_s)
+            seen.append([r.cpu() for r in s.lookup_hops(hops_s)]
+                        + [f.cpu() for f in feats_a] + [agg.cpu()])
+        for x, y in zip(*seen):
+            assert x.view(torch.int32).equal(y.view(torch.int32))
+        pairs = list(zip(hot[step * 8:(step + 1) * 8].tolist(),
+                         cold[step * 8:(step + 1) * 8].tolist()))
+        for s in (dev, cpu):
+            s.swap_assignments(pairs)
+    assert dev.snapshot_stats() == cpu.snapshot_stats()
+    assert dev.cache.report() == cpu.cache.report()
+    st = dev.snapshot_stats()
+    assert st["cache_hits"] > 0 and st["prefetch_hits"] > 0
+    assert torch.equal(dev.lookup(np.arange(n)).cpu(),
+                       torch.from_numpy(feats))
+    for pf in pfs:
+        pf.close()
+
+
+@pytest.mark.cuda
+def test_stage_churn_and_migration_exact_on_card(card):
+    """One thread looks up through a small cache on the card while another
+    re-publishes the stage (side-stream uploads) and the main thread
+    migrates: every row read equals the pristine store's bits."""
+    import threading
+    from repro_torch.core import (GPUFeatureCache, Prefetcher,
+                                  migration_pairs, quiver_placement)
+    feats, fap, (dev, _) = _cold_path_stores(card)
+    _, _, (pristine, _) = _cold_path_stores(card)
+    n = feats.shape[0]
+    dev.attach_cache(GPUFeatureCache.for_store(dev, 64))
+    rng = np.random.default_rng(7)
+    hops = [torch.from_numpy(rng.integers(0, n, s).astype(np.int32)).to(card)
+            for s in (32, 320)]
+    want = [r.view(torch.int32).clone() for r in pristine.lookup_hops(hops)]
+    want_agg = pristine.lookup_aggregate(hops)[1].view(torch.int32).clone()
+    stop, errors = threading.Event(), []
+    pf = Prefetcher(dev, budget=n)
+
+    def reader():
+        while not stop.is_set():
+            got = dev.lookup_hops(hops)
+            agg = dev.lookup_aggregate(hops)[1]
+            if not (all(g.view(torch.int32).equal(w)
+                        for g, w in zip(got, want))
+                    and agg.view(torch.int32).equal(want_agg)):
+                errors.append("torn lookup on the card")
+                return
+
+    def refresher():
+        r = np.random.default_rng(13)
+        while not stop.is_set():
+            scores = r.random(n)
+            scores[scores < 0.5] = 0.0
+            pf.refresh(scores=scores)
+
+    threads = [threading.Thread(target=reader),
+               threading.Thread(target=refresher)]
+    for t in threads:
+        t.start()
+    try:
+        drifted = fap.copy()
+        drifted[np.argsort(fap)[:400]] += fap.max() * 3
+        tgt = quiver_placement(drifted, dev.plan.topology)
+        for _ in range(10):
+            pairs = migration_pairs(dev.plan.tier, tgt.tier, drifted,
+                                    budget=100)
+            if pairs:
+                dev.swap_assignments(pairs)
+            dev.promote_misses(budget=8)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+    pf.close()
+    assert not any(t.is_alive() for t in threads)
+    assert not errors and dev.migrated_rows > 0
