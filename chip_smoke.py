@@ -52,6 +52,29 @@ Phases (any failed check exits non-zero before the result line):
              must partition the requests. Prints rps, p50, p99 and host
              fetches per request beside the same run without the cold
              path (phase 4).
+4c. sharded — the distributed path: the launcher at its defaults with
+             ``--sharded --mesh-world SHARDED_WORLD --prefetch
+             --sharded-spill-dir`` (4 logical shards on one card, one a
+             card where there are more), then again with ``--adaptive``.
+             Every ``lookup_hops`` call on the sharded store (calibration,
+             warm-up, serving) is recorded and replayed on fresh sharded
+             stores under both strategies, stage off and on, over the
+             launcher's placement and over one with the single-host HBM
+             budget (DISK rows, per-shard spill files), with the most-read
+             rows and the most-read WARM rows made -0.0: the bits must
+             equal a pristine single-host store's, except that
+             ``allgather`` returns +0.0 for a -0.0 read from another
+             shard's WARM row (the reference's sum), which must occur. On
+             the replay stores ``exchanges``, ``exchanged_ids``,
+             ``stage_hits`` and (DISK placement) ``spill_reads`` must be
+             > 0 and ``exchanged_ids`` at most the occurrences exchanged.
+             An engine over host, device and sharded executors with
+             registered curves must route to all three, and the sharded
+             executor must answer a batch above ``max_batch``. Logs rps,
+             p50, p99 and ``routed`` of each run, the sharded and
+             single-host collect ms, the dedup ratio, and ``lookup_hops``
+             ms (host clock and CUDA events) and device ops a lookup at
+             1, 2 and 4 shards under both strategies.
 5. din     — builds the DIN recsys stack of ``repro_torch.launch.
              recsys_din --config din`` (10M-row item table placed through
              the tiered store). Kernel checks first: ``embedding_bag`` at
@@ -167,6 +190,8 @@ GRID_STRIDE_SEGMENTS = 200_000  # more segments than the grid holds at once
 COLD_ADAPT_INTERVAL = 16   # control period of the cold-path runs (default 32)
 GATEWAY_DEADLINE_MS = 250  # interactive requests' deadline in the gateway run
 CHURN_STEPS = 6            # control steps beside a reader thread
+SHARDED_WORLD = 4          # logical shards of phase 4c on one card
+SHARDED_HOT_FRAC = 0.25    # the launcher's --hot-frac
 
 
 def log(msg: str) -> None:
@@ -936,6 +961,328 @@ def cold_path_phase(fanouts, baselines: dict) -> None:
             del rec, stack, store, pristine, calls
     finally:
         shutil.rmtree(spill_dir, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 4c
+# ---------------------------------------------------------------------------
+def sharded_targets():
+    from repro_torch.core import ShardedFeatureStore, TieredFeatureStore
+    return [(ShardedFeatureStore, "lookup_hops"),
+            (TieredFeatureStore, "lookup_hops")]
+
+
+class HopRecorder:
+    """Records the hops of every ``ShardedFeatureStore.lookup_hops`` call
+    while the context is open (calibration, warm-up and serving; the
+    sampler's fresh tensors, which nothing writes afterwards)."""
+
+    def __enter__(self):
+        from repro_torch.core import ShardedFeatureStore
+        self.calls = []
+        self._fn = fn = ShardedFeatureStore.lookup_hops
+
+        def lookup_hops(store, hops):
+            self.calls.append(list(hops))
+            return fn(store, hops)
+
+        ShardedFeatureStore.lookup_hops = lookup_hops
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import ShardedFeatureStore
+        ShardedFeatureStore.lookup_hops = self._fn
+
+
+def most_read(calls) -> "np.ndarray":
+    """Ids read by the recorded calls, the most-read first."""
+    import numpy as np
+    ids = np.concatenate([h.cpu().numpy() for hops in calls for h in hops])
+    counts = np.bincount(ids[ids >= 0])
+    return np.argsort(-counts, kind="stable")[:int((counts > 0).sum())]
+
+
+def placement_at(fap, world: int, rows_per_device=None):
+    """A placement over ``world`` shards with the launcher's HOST budget
+    (half the nodes, the rest on DISK) and ``rows_per_device`` HBM rows a
+    shard (default: the launcher's ``--sharded`` sizing, which covers the
+    graph)."""
+    from repro_torch.core import TopologySpec, quiver_placement
+    n = fap.shape[0]
+    if rows_per_device is None:
+        rows_per_device = max(-(-n // world), 64)
+    return quiver_placement(fap, TopologySpec(
+        num_pods=1, devices_per_pod=world, rows_per_device=rows_per_device,
+        rows_host=max(n // 2, 64), hot_replicate_fraction=SHARDED_HOT_FRAC))
+
+
+def sharded_store_at(feats, plan, strategy: str, spill_dir=None):
+    """A sharded store of the plan's shards, placed on the card(s)."""
+    from repro_torch.core import ShardedFeatureStore, TieredFeatureStore
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(plan.topology.devices_per_pod, device="cuda")
+    return ShardedFeatureStore.from_tiered(
+        TieredFeatureStore.build(feats, plan, device=mesh.devices[0]),
+        mesh, "x", strategy,
+        spill_dir=None if spill_dir is None else str(spill_dir))
+
+
+def replay_sharded(calls, ss, pristine) -> dict:
+    """Replay recorded hops on ``ss``; every output must equal the pristine
+    single-host store's bits, except that under ``allgather`` a -0.0 read
+    from another shard's WARM row is +0.0 (the reference's sum). Returns
+    counts: lookups, occurrences exchanged, remote -0.0 elements."""
+    import numpy as np
+    import torch
+    from repro_torch.core.placement import TIER_HOST, TIER_WARM
+    world = ss.world
+    stage = ss._snapshot_stage()
+    out = {"lookups": 0, "occurrences": 0, "remote_negzero": 0}
+    for i, hops in enumerate(calls):
+        got = torch.cat(ss.lookup_hops(hops))
+        want = bits(torch.cat(pristine.lookup_hops(hops))).clone()
+        ids = torch.cat(hops).cpu().numpy().astype(np.int64)
+        safe = np.maximum(ids, 0)
+        tier = ss.tier_np[safe]
+        warm = (ids >= 0) & (tier == TIER_WARM)
+        staged = ((ids >= 0) & (tier >= TIER_HOST) & (stage[0][safe] >= 0)
+                  if stage is not None else np.zeros(ids.size, bool))
+        out["occurrences"] += int((warm | staged).sum())
+        if ss.strategy == "allgather":
+            requester = np.arange(ids.size) // (ids.size // world)
+            remote = torch.from_numpy(
+                warm & (ss._owner_np[safe] != requester)).to(want.device)
+            negzero = remote[:, None] & (want == -2 ** 31)
+            out["remote_negzero"] += int(negzero.sum())
+            want[negzero] = 0
+        check(bits(got).equal(want),
+              f"sharded replay {i} ({ss.strategy}, stage "
+              f"{'on' if stage is not None else 'off'}): bits differ from "
+              "the pristine store's")
+        out["lookups"] += 1
+    return out
+
+
+def time_lookups(ss, calls) -> dict:
+    """Host-clock and CUDA-event ms of ``lookup_hops`` over ``calls``
+    (each call synchronized), and device activities (kernels, copies,
+    memsets) per lookup under ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for hops in calls[:3]:
+        ss.lookup_hops(hops)
+    torch.cuda.synchronize()
+    host, dev = [], []
+    for hops in calls:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        ss.lookup_hops(hops)
+        end.record()
+        end.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        dev.append(start.elapsed_time(end))
+    sample = calls[:10]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for hops in sample:
+            ss.lookup_hops(hops)
+        torch.cuda.synchronize()
+    launches = sum(e.device_type == DeviceType.CUDA for e in prof.events())
+    return {"host_ms_p50": statistics.median(host),
+            "event_ms_p50": statistics.median(dev),
+            "device_ops_per_lookup": launches / len(sample)}
+
+
+def three_executor_check(stack, world: int, fanouts) -> dict:
+    """Host, device and sharded executors under one engine, each given a
+    sweet spot on the PSGS axis (registered curves): all three must be
+    routed to, and the sharded executor must answer a batch larger than
+    its ``max_batch`` with one finite row per seed."""
+    import numpy as np
+    import torch
+    from repro_torch.core import Request
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serving import (CostModelRouter, LatencyCurve,
+                                     ServingEngine, ShardedExecutor)
+    graph, _, psgs, _, store, _, infer = stack
+    ex = launcher.build_executors(graph, store, fanouts, infer, psgs,
+                                  num_workers=1, max_batch=32)
+    sstore = sharded_store_at(stack[1], placement_at(stack[3], world),
+                              "alltoall")
+    # no tier table: every batch is eligible
+    ex["sharded"] = ShardedExecutor(sstore.mesh, "x",
+                                    graph.device_arrays(sstore.device),
+                                    sstore, fanouts, infer, max_batch=32,
+                                    psgs_table=psgs)
+    order = np.argsort(psgs)
+    picks = [int(order[0]), int(order[order.size // 2]), int(order[-1])]
+    xs = [float(psgs[s]) for s in picks]
+    qmax = xs[-1] + 1.0
+
+    def vcurve(center):
+        grid = np.array([0.0, center, qmax])
+        ys = np.abs(grid - center) + 1e-6
+        return LatencyCurve(psgs=grid, avg=ys, mx=ys)
+
+    router = CostModelRouter(psgs, "latency_preferred")
+    for name, x in zip(("host", "device", "sharded"), xs):
+        router.register(name, vcurve(x), kind="host" if name == "host"
+                        else "device", executor=ex[name])
+    engine = ServingEngine(ex, router, max_inflight=8)
+    try:
+        reqs = [Request(i, np.array([s]), time.perf_counter())
+                for i, s in enumerate(picks * 4)]
+        m = engine.run([[r] for r in reqs])
+        check(all(m.routed.get(k, 0) > 0
+                  for k in ("host", "device", "sharded")),
+              f"three executors: routed {m.routed}")
+        big = ex["sharded"].max_batch + 8
+        out = ex["sharded"].run(np.arange(big))
+        torch.cuda.synchronize()
+        check(out.shape == (big, launcher.HIDDEN[-1])
+              and bool(torch.isfinite(out).all()),
+              f"sharded executor: {tuple(out.shape)} rows for {big} seeds")
+    finally:
+        engine.close()
+    return dict(m.routed)
+
+
+def sharded_phase(fanouts, baselines: dict) -> None:
+    """The distributed serve path on the card: ``SHARDED_WORLD`` logical
+    shards (one a card where there are more cards), through the launcher
+    at its default size with ``--sharded --prefetch --sharded-spill-dir``,
+    and again with ``--adaptive``; then replays, routing, mechanism
+    counters and timings."""
+    import shutil
+    import torch
+    from repro_torch.core import Prefetcher, TieredFeatureStore
+    from repro_torch.core.placement import TIER_WARM
+    from repro_torch.launch import serve as launcher
+    world = max(SHARDED_WORLD, torch.cuda.device_count())
+    spill_root = ROOT / "build" / "sharded_spill"
+    runs = (("prefetch", ["--prefetch"]),
+            ("adaptive", ["--prefetch", "--adaptive", "--adapt-interval",
+                          str(COLD_ADAPT_INTERVAL)]))
+    recorded = []
+    try:
+        for name, extra in runs:
+            t0 = time.perf_counter()
+            args = launcher.parse_args(
+                ["--device", "cuda", "--requests", str(SERVE_REQUESTS),
+                 "--sharded", "--mesh-world", str(world),
+                 "--sharded-spill-dir", str(spill_root / name), *extra])
+            stack = launcher.stack_from_args(args)
+            with HopRecorder() as rec, HostTimer(sharded_targets()) as timer:
+                summary = launcher.serve(args, stack=stack)
+            calls = rec.calls
+            host_ms = timer.report()
+            sstats = summary["store"]["ShardedFeatureStore"]
+            check(summary["requests"] == SERVE_REQUESTS,
+                  f"sharded[{name}] answered {summary['requests']}")
+            check(len(calls) > 0, f"sharded[{name}]: no sharded lookup")
+            check(sstats["exchanges"] > 0 and sstats["exchanged_ids"] > 0,
+                  f"sharded[{name}]: no exchange {sstats}")
+            base = (baselines or {}).get("fused", {}).get("host_ms", {})
+            log(f"sharded[{name}]: {world} shards; {summary['requests']} "
+                f"requests, {summary['throughput_rps']:.2f} rps, p50 "
+                f"{summary['p50_ms']:.3f} ms, p99 {summary['p99_ms']:.3f} "
+                f"ms, routed {summary['routed']}, executors "
+                f"{summary['executors']}; sharded store {sstats}; "
+                f"{len(calls)} sharded lookups (calibration and warm-up "
+                f"included); collect host ms {host_ms}; phase 4 (no "
+                f"--sharded) {base} in {time.perf_counter() - t0:.1f} s")
+            print(json.dumps({
+                "sharded": name, "world": world,
+                "requests": summary["requests"],
+                "throughput_rps": summary["throughput_rps"],
+                "p50_ms": summary["p50_ms"], "p99_ms": summary["p99_ms"],
+                "routed": summary["routed"],
+                "executors": summary["executors"],
+                "sharded_store": sstats,
+                "collect_ms": host_ms,
+                "collect_ms_phase4": base}), flush=True)
+            recorded.append((name, stack, calls))
+
+        # 1. replay, both strategies, stage on and off, on the launcher's
+        #    placement and on one with DISK rows (the single-host store's
+        #    HBM budget split over the shards; per-shard spill files); the
+        #    most-read rows, and the most-read WARM rows, made -0.0
+        t0 = time.perf_counter()
+        for name, stack, calls in recorded:
+            fap = stack[3]
+            n = stack[1].shape[0]
+            order = most_read(calls)
+            layouts = (("launcher", None), ("disk", max(n // 4 // world, 64)))
+            for layout, rows_per_device in layouts:
+                plan = placement_at(fap, world, rows_per_device)
+                feats = stack[1].copy()
+                feats[order[:256]] = -0.0
+                feats[order[plan.tier[order] == TIER_WARM][:256]] = -0.0
+                pristine = TieredFeatureStore.build(feats, plan,
+                                                    device="cuda")
+                for strategy in ("alltoall", "allgather"):
+                    ss = sharded_store_at(
+                        feats, plan, strategy,
+                        spill_dir=spill_root / f"{name}-{layout}-{strategy}")
+                    pf = Prefetcher(ss, budget=1024)
+                    try:
+                        off = replay_sharded(calls, ss, pristine)
+                        pf.refresh(scores=fap)
+                        on = replay_sharded(calls, ss, pristine)
+                    finally:
+                        pf.close()
+                    st = ss.snapshot_stats()
+                    log(f"sharded replay [{name}, {layout} placement "
+                        f"{ss.tier_np.size - int((ss.tier_np >= 2).sum())} "
+                        f"HBM rows, {strategy}]: {off['lookups']} + "
+                        f"{on['lookups']} lookups bitwise (stage off, on); "
+                        f"remote -0.0 elements {off['remote_negzero']} + "
+                        f"{on['remote_negzero']}; counters {st}")
+                    if strategy == "allgather":
+                        check(off["remote_negzero"] > 0,
+                              "allgather replay read no remote -0.0 row")
+                        continue
+                    occ = off["occurrences"] + on["occurrences"]
+                    check(st["exchanges"] > 0 and st["exchanged_ids"] > 0,
+                          f"replay [{layout}]: no exchange {st}")
+                    check(st["exchanged_ids"] <= occ,
+                          f"exchanged_ids {st['exchanged_ids']} > "
+                          f"{occ} occurrences")
+                    check(st["stage_hits"] > 0,
+                          f"replay [{layout}]: no stage hit {st}")
+                    if layout == "disk":
+                        check(st["spill_reads"] > 0,
+                              f"replay [disk]: no spill read {st}")
+                    log(f"dedup [{name}, {layout}]: {st['exchanged_ids']} "
+                        f"distinct (shard, id) pairs for {occ} occurrences "
+                        f"exchanged ({st['exchanged_ids'] / occ:.3f})")
+        log(f"sharded replays in {time.perf_counter() - t0:.1f} s")
+
+        # 2. three executors under one engine
+        name, stack, calls = recorded[0]
+        routed = three_executor_check(stack, world, fanouts)
+        log(f"three executors routed {routed}")
+
+        # 3. lookup_hops time at 1, 2 and world shards, both strategies
+        feats, fap = stack[1], stack[3]
+        timings = {}
+        for w in sorted({1, 2, world}):
+            plan = placement_at(fap, w)
+            for strategy in ("alltoall", "allgather"):
+                ss = sharded_store_at(feats, plan, strategy)
+                timings[f"{w}/{strategy}"] = t = time_lookups(
+                    ss, calls[:40])
+                log(f"lookup_hops at {w} shard(s), {strategy}: host p50 "
+                    f"{t['host_ms_p50']:.3f} ms, CUDA events p50 "
+                    f"{t['event_ms_p50']:.3f} ms, "
+                    f"{t['device_ops_per_lookup']:.1f} device ops a lookup")
+        print(json.dumps({"sharded_lookup_hops": timings,
+                          "three_executors_routed": routed}), flush=True)
+    finally:
+        shutil.rmtree(spill_root, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1775,6 +2122,9 @@ def main() -> None:
     t0 = time.perf_counter()
     cold_path_phase(fanouts, baselines)
     log(f"cold path phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sharded_phase(fanouts, baselines)
+    log(f"sharded phase in {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -1,7 +1,7 @@
 """gin-tu [gnn] n_layers=5 d_hidden=64 aggregator=sum eps=learnable
 [arXiv:1810.00826] — the published widths of ``src/repro/configs/gin_tu.py``.
 
-Not ported: ``_loss_sharded`` (the halo-exchange path; ROADMAP A10).
+Not ported: ``_loss_sharded`` (the halo-exchange path; ROADMAP A10b).
 """
 from __future__ import annotations
 

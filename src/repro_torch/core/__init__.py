@@ -1,8 +1,10 @@
 """Workload metrics (PSGS/FAP), placement and online re-placement, the
-tiered feature store with its device cache and prefetcher, and request
-batching/workload generation."""
+tiered feature store with its device cache and prefetcher, the sharded
+store over a device mesh, and request batching/workload generation."""
 from repro_torch.core.fap import compute_fap
-from repro_torch.core.feature_store import (STATS_SCHEMA, DiskSpillTier,
+from repro_torch.core.feature_store import (SHARDED_STATS_SCHEMA,
+                                            STATS_SCHEMA, DiskSpillTier,
+                                            ShardedFeatureStore,
                                             TieredFeatureStore)
 from repro_torch.core.gpu_cache import GPUFeatureCache
 from repro_torch.core.placement import (PlacementPlan, TopologySpec,
@@ -15,7 +17,8 @@ from repro_torch.core.serving import (PRIORITIES, DynamicBatcher, Request,
 __all__ = [
     "compute_psgs", "compute_fap", "TopologySpec",
     "PlacementPlan", "quiver_placement", "migration_pairs",
-    "TieredFeatureStore", "DiskSpillTier", "STATS_SCHEMA",
+    "TieredFeatureStore", "ShardedFeatureStore", "DiskSpillTier",
+    "STATS_SCHEMA", "SHARDED_STATS_SCHEMA",
     "GPUFeatureCache", "Prefetcher", "Request", "WorkloadGenerator",
     "DynamicBatcher", "batch_seeds", "PRIORITIES",
 ]

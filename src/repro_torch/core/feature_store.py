@@ -36,6 +36,11 @@ The ``(N,)`` tier/slot tables are kept twice: as int32 device tensors
 (the device-side gathers index them) and as numpy mirrors published in the
 same snapshot, so host-side address resolution never copies a whole table
 back from the device.
+
+:class:`ShardedFeatureStore` is the distributed layout over a device mesh
+(paper §5.3's one-sided reads): HOT rows replicated, WARM rows sharded by
+FAP owner, read through an owner-sorted dedup exchange planned on the host,
+with per-shard stages and spill files in front of the host miss path.
 """
 from __future__ import annotations
 
@@ -880,3 +885,670 @@ class TieredFeatureStore:
         if cache is not None:
             cache.invalidate(flat)
         return 2 * len(pairs)
+
+
+# ---------------------------------------------------------------------------
+# Distributed store: one-sided reads over the mesh
+# ---------------------------------------------------------------------------
+
+# Dispatch counters of the sharded exchange, the reference's schema.
+SHARDED_STATS_SCHEMA: tuple = (
+    "exchanges", "exchanged_ids", "stage_hits", "stage_misses",
+    "host_fetches", "cold_rows", "spill_reads")
+
+
+def _new_sharded_stats() -> dict[str, int]:
+    """Zeroed dispatch counters of the sharded exchange:
+
+      exchanges        dedup exchanges dispatched
+      exchanged_ids    distinct (shard, id) pairs moved through the
+                       exchange: an id repeated across hops costs one
+                       entry however many positions repeat it
+      stage_hits       cold id occurrences resolved from a per-shard stage
+                       inside the exchange
+      stage_misses     cold id occurrences left to the host miss path
+      host_fetches     host cold fetches actually issued
+      cold_rows        id occurrences those fetches resolved
+      spill_reads      rows read from the per-shard DISK spill files
+    """
+    return dict.fromkeys(SHARDED_STATS_SCHEMA, 0)
+
+
+def _host(x) -> np.ndarray:
+    """``x`` (a tensor on any device, or array-like) as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _upload(parts: Sequence[np.ndarray], device: torch.device
+            ) -> list[torch.Tensor]:
+    """The integer vectors ``parts`` as int64 tensors on ``device``,
+    through one host→device copy."""
+    flat = np.concatenate([np.asarray(p, np.int64).reshape(-1)
+                           for p in parts])
+    return list(torch.split(torch.from_numpy(flat).to(device),
+                            [int(np.size(p)) for p in parts]))
+
+
+@dataclasses.dataclass(eq=False)
+class _ShardGroup:
+    """The shards of the mesh that live on one device, with that device's
+    copies: the replicated HOT rows and id tables, the warm rows of its
+    shards in shard order, and each shard's position in the group."""
+
+    device: torch.device
+    shards: tuple             # mesh shard indices, ascending
+    hot: torch.Tensor         # (n_hot, d) replica
+    warm: torch.Tensor        # (len(shards) * rows_per_dev, d)
+    tier_t: torch.Tensor      # (N,) int32 replicas
+    slot_t: torch.Tensor
+    owner_t: torch.Tensor
+    gpos_np: np.ndarray       # (world,) position in this group, -1 elsewhere
+    gpos: torch.Tensor        # the same, int64 on ``device``
+    every: bool               # the group holds every shard of the mesh
+
+
+class ShardedFeatureStore:
+    """Feature store laid out over a mesh axis (paper §5.3, distributed).
+
+    hot  : ``(n_hot, d)`` replicated on every device of the mesh
+    warm : ``(world * rows_per_dev, d)`` sharded: shard ``w`` owns rows
+           ``[w * rows_per_dev, (w + 1) * rows_per_dev)`` on ``devices[w]``
+
+    The mesh is single-controller (:class:`~repro_torch.launch.mesh.Mesh`):
+    this one object plans every lookup on the host and issues the work of
+    every shard. Two exchange strategies, as in the reference:
+
+    ``"alltoall"`` (default) — the owner-sorted, capacity-bounded dedup
+    exchange. Each shard's slice of the request vector is deduplicated
+    across all hops on the host, sorted by owner and padded to a pow2
+    per-(requester, owner) capacity; owners answer with one gather from
+    their warm shard (and their stage shard, for staged cold ids), and the
+    answers travel back to the requesters. The shards of one device are
+    served by one gather over all their requests, and a block moves with
+    ``.to(device)``: no copy between shards of one card, a peer copy
+    between cards. Cold ids without a staged row fall back to one host
+    fetch (:meth:`read_cold_rows`) merged after the exchange.
+
+    ``"allgather"`` (baseline) — every shard publishes the warm slots it
+    wants, owners answer each of them, and the answers are summed back to
+    the requester; cold ids are resolved by a host post-pass. As in the
+    reference, a remote read is that sum of the owner's row and the other
+    owners' zeros, so a ``-0.0`` element read from another shard comes
+    back ``+0.0``; every other read copies bits.
+
+    Rows are otherwise moved and selected, never operated on: lookups are
+    bit-identical to the single-host :class:`TieredFeatureStore`. Built
+    with :meth:`from_tiered` the store keeps the source store for host
+    fetches and, with ``spill_dir=``, per-shard :class:`DiskSpillTier`
+    files; a directly constructed store reads cold ids as zeros. Counters
+    land in :attr:`stats` (schema ``SHARDED_STATS_SCHEMA``), which the
+    serving engine reports under ``summary()["store"]``.
+    """
+
+    def __init__(self, mesh, axis_name: str, hot, warm, tier_t, slot_t,
+                 owner_t, strategy: str = "alltoall"):
+        self.mesh, self.axis = mesh, axis_name
+        self.world = int(mesh.shape[axis_name])
+        if self.world and warm.shape[0] % self.world:
+            raise ValueError(
+                f"warm.shape[0] ({warm.shape[0]}) must be divisible by the "
+                f"mesh world size ({self.world}) — a ragged warm buffer "
+                f"would silently truncate the last shard")
+        if strategy not in ("alltoall", "allgather"):
+            raise ValueError(f"unknown exchange strategy {strategy!r} "
+                             f"(want 'alltoall' or 'allgather')")
+        world = max(self.world, 1)
+        per = warm.shape[0] // world
+        self.rows_per_dev = per
+        self.strategy = strategy
+        self.feat_dim = int(hot.shape[1])
+        hot = torch.as_tensor(hot)
+        warm = torch.as_tensor(warm)
+        # host mirrors of the id tables: static (the sharded store never
+        # migrates), so a lookup's planning costs no device round trip
+        self._tier_np = _host(tier_t).astype(np.int32)
+        self._slot_np = _host(slot_t).astype(np.int64)
+        self._owner_np = _host(owner_t).astype(np.int64)
+        self._has_cold = bool((self._tier_np >= TIER_HOST).any())
+        tables = [torch.from_numpy(t.astype(np.int32))
+                  for t in (self._tier_np, self._slot_np, self._owner_np)]
+        self._groups: list[_ShardGroup] = []
+        for dev, shards in mesh.groups():
+            every = shards == tuple(range(world))
+            if every:
+                rows = warm
+            else:
+                idx = np.concatenate([np.arange(s * per, (s + 1) * per)
+                                      for s in shards])
+                rows = warm.index_select(0, torch.from_numpy(idx)
+                                         .to(warm.device))
+            gpos = np.full(world, -1, np.int64)
+            gpos[list(shards)] = np.arange(len(shards))
+            self._groups.append(_ShardGroup(
+                dev, shards, hot.to(dev), rows.to(dev),
+                *(t.to(dev) for t in tables), gpos,
+                torch.from_numpy(gpos).to(dev), every))
+        # each owner's position on the answer buffers' owner axis (owners
+        # in group order, then shard order within a group)
+        order = [s for g in self._groups for s in g.shards]
+        self._opos = np.empty(world, np.int64)
+        self._opos[order] = np.arange(world)
+        self._tiered: Optional[TieredFeatureStore] = None
+        self._spill: Optional[list] = None
+        self._spill_slot: Optional[np.ndarray] = None
+        self._spill_dtype = np.dtype(np.float32)
+        self._stage = None
+        self._stage_lock = threading.Lock()
+        self.stats = _new_sharded_stats()
+        self._stats_lock = threading.Lock()
+
+    @property
+    def device(self) -> torch.device:
+        """The first shard's device: lookups return there, and a caller
+        hands :meth:`publish_stage` its rows there."""
+        return self._groups[0].device
+
+    @property
+    def hot(self) -> torch.Tensor:
+        """The HOT rows' replica on :attr:`device`."""
+        return self._groups[0].hot
+
+    @staticmethod
+    def from_tiered(store: TieredFeatureStore, mesh, axis_name: str,
+                    strategy: str = "alltoall", *,
+                    spill_dir: Optional[str] = None
+                    ) -> "ShardedFeatureStore":
+        """The sharded view of a single-host store whose placement was made
+        for this mesh: warm shards padded to one size on the device, warm
+        slots rebased onto the padded shards, the source store kept for the
+        host miss path, and with ``spill_dir`` one spill file a shard.
+
+        Raises:
+            ValueError: the placement's world is not the mesh's.
+        """
+        topo = store.plan.topology
+        world = topo.num_pods * topo.devices_per_pod
+        mesh_world = int(mesh.shape[axis_name])
+        if world != mesh_world:
+            raise ValueError(f"the placement is for {world} devices, the "
+                             f"mesh has {mesh_world}")
+        hot, warm, _, _, _, _, tier, slot, _ = store._snapshot()
+        rows = int(warm.shape[0])
+        per = -(-rows // world)
+        base = _host(store.warm_base).astype(np.int64)
+        counts = np.diff(np.append(base, rows))
+        owner = _host(store.owner_t).astype(np.int64)
+        slot = slot.astype(np.int64)
+        src = np.concatenate([base[w] + np.arange(counts[w])
+                              for w in range(world)])
+        dst = np.concatenate([w * per + np.arange(counts[w])
+                              for w in range(world)])
+        padded = warm.new_zeros((per * world, store.feat_dim))
+        if src.size:
+            padded.index_copy_(
+                0, torch.from_numpy(dst).to(warm.device),
+                warm.index_select(0, torch.from_numpy(src).to(warm.device)))
+        new_slot = slot.copy()
+        m = tier == TIER_WARM
+        new_slot[m] = slot[m] - base[owner[m]] + owner[m] * per
+        ss = ShardedFeatureStore(mesh, axis_name, hot, padded, tier,
+                                 new_slot.astype(np.int32), owner, strategy)
+        ss._tiered = store    # cold-tier (HOST/DISK) miss path
+        if spill_dir is not None:
+            ss._attach_spill(store, spill_dir)
+        return ss
+
+    def _attach_spill(self, store: TieredFeatureStore, spill_dir) -> None:
+        """One :class:`DiskSpillTier` file a shard (shard ``w`` owns the
+        DISK rows of ids with ``id % world == w``, file
+        ``shard{w:03d}.spill``) and the id → shard-local row table the
+        miss path reads through. Rows are copied at build time and stay
+        exact under source-store migration (rows travel with nodes)."""
+        world = max(self.world, 1)
+        os.makedirs(spill_dir, exist_ok=True)
+        n = self._tier_np.shape[0]
+        spill_slot = np.full(n, -1, np.int32)
+        tiers: list = []
+        disk_ids = np.flatnonzero(self._tier_np == TIER_DISK)
+        for w in range(world):
+            ids_w = disk_ids[disk_ids % world == w]
+            if ids_w.size == 0:
+                tiers.append(None)
+                continue
+            rows = store.read_cold_rows(ids_w)
+            path = os.path.join(spill_dir, f"shard{w:03d}.spill")
+            tiers.append(DiskSpillTier.build(rows, path))
+            spill_slot[ids_w] = np.arange(ids_w.size, dtype=np.int32)
+            self._spill_dtype = rows.dtype
+        self._spill = tiers
+        self._spill_slot = spill_slot
+
+    def read_cold_rows(self, ids: np.ndarray) -> np.ndarray:
+        """Host-side exact reader of cold (HOST/DISK) rows: the dedup
+        exchange's miss path and the stage source a
+        :class:`~repro_torch.core.prefetch.Prefetcher` reads through. DISK
+        rows come from this store's per-shard spill files when it has them
+        (counted as ``spill_reads``); everything else delegates to the
+        source store's :meth:`TieredFeatureStore.read_cold_rows`. Without a
+        source store cold rows read as zeros.
+
+        Args:
+            ids: ``(K,)`` node ids (``-1`` reads zeros).
+
+        Returns:
+            ``(K, d)`` rows in ``ids`` order.
+        """
+        ids = np.asarray(ids).reshape(-1)
+        if self._spill is None or self._spill_slot is None:
+            if self._tiered is None:
+                return np.zeros((ids.shape[0], self.feat_dim),
+                                self._spill_dtype)
+            return self._tiered.read_cold_rows(ids)
+        world = max(self.world, 1)
+        safe = np.maximum(ids, 0)
+        srow = self._spill_slot[safe]
+        local = (ids >= 0) & (self._tier_np[safe] == TIER_DISK) & (srow >= 0)
+        out = np.zeros((ids.shape[0], self.feat_dim), self._spill_dtype)
+        if local.any():
+            idx = np.flatnonzero(local)
+            own = safe[idx] % world
+            for w in np.unique(own):
+                sel = idx[own == w]
+                out[sel] = self._spill[int(w)][srow[sel]]
+            with self._stats_lock:
+                self.stats["spill_reads"] += int(local.sum())
+        rest = (ids >= 0) & ~local
+        if rest.any() and self._tiered is not None:
+            out[rest] = self._tiered.read_cold_rows(ids[rest])
+        return out
+
+    def publish_stage(self, stage_slot: Optional[np.ndarray],
+                      stage_rows) -> None:
+        """Publish (``stage_slot, stage_rows``) or clear (``None, None``)
+        the per-shard stages.
+
+        Takes the global layout of :meth:`TieredFeatureStore.publish_stage`
+        (what the :class:`~repro_torch.core.prefetch.Prefetcher` hands
+        over: ``stage_rows`` already copied to :attr:`device`) and rebins
+        it on the device: cold id ``i`` goes to shard ``i % world``, each
+        shard is padded to one pow2 row capacity ``cap`` (the reference's
+        ``(local, buf, cap)`` layout), and each device's block moves to
+        that device. The stage is published only once those copies have
+        completed; in-flight lookups keep the previous one.
+        """
+        if stage_slot is None or stage_rows is None:
+            with self._stage_lock:
+                self._stage = None
+            return
+        world = max(self.world, 1)
+        stage_slot = np.asarray(stage_slot)
+        ids = np.flatnonzero(stage_slot >= 0)
+        if ids.size == 0:
+            with self._stage_lock:
+                self._stage = None
+            return
+        rows = torch.as_tensor(stage_rows)
+        owner = ids % world
+        order = np.argsort(owner, kind="stable")
+        ids_o, own_o = ids[order], owner[order]
+        counts = np.bincount(own_o, minlength=world)
+        cap = 1 << max(int(counts.max()) - 1, 0).bit_length()
+        starts = np.zeros(world, np.int64)
+        np.cumsum(counts[:-1], out=starts[1:])
+        rank = np.arange(ids_o.size) - starts[own_o]
+        local = np.full(stage_slot.shape[0], -1, np.int32)
+        local[ids_o] = rank
+        src = stage_slot[ids_o]
+        bufs = []
+        for g in self._groups:
+            mine = g.gpos_np[own_o] >= 0
+            buf = rows.new_zeros((len(g.shards) * cap, rows.shape[1]))
+            if mine.any():
+                dst_t, src_t = _upload(
+                    [g.gpos_np[own_o[mine]] * cap + rank[mine], src[mine]],
+                    rows.device)
+                buf.index_copy_(0, dst_t, rows.index_select(0, src_t))
+            bufs.append(buf.to(g.device, non_blocking=True))
+        for dev in {str(b.device): b.device for b in [rows, *bufs]}.values():
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
+        with self._stage_lock:
+            self._stage = (local, tuple(bufs), int(cap))
+
+    @property
+    def tier_table_host(self) -> np.ndarray:
+        """Host mirror of the per-node tier table (static: the sharded
+        store never migrates)."""
+        return self._tier_np
+
+    @property
+    def tier_np(self) -> np.ndarray:
+        """The tier mirror under the name the prefetcher reads."""
+        return self._tier_np
+
+    def staged_rows(self) -> int:
+        """Rows currently staged across all shards (0 with no stage)."""
+        stage = self._snapshot_stage()
+        return 0 if stage is None else int((stage[0] >= 0).sum())
+
+    def _snapshot_stage(self):
+        with self._stage_lock:
+            return self._stage
+
+    def snapshot_stats(self) -> dict[str, int]:
+        """Coherent copy of the dispatch counters."""
+        with self._stats_lock:
+            return dict(self.stats)
+
+    def reset_stats(self) -> dict[str, int]:
+        """Snapshot and zero the dispatch counters."""
+        with self._stats_lock:
+            out = dict(self.stats)
+            for k in out:
+                self.stats[k] = 0
+        return out
+
+    def _check_world_multiple(self, m: int, what: str) -> None:
+        world = max(self.world, 1)
+        if m == 0 or m % world:
+            raise ValueError(
+                f"{what} = {m} must be a non-zero multiple of the mesh "
+                f"world size ({world}) so each device's shard is static — "
+                f"pad with -1 (executor padding guarantees this)")
+
+    # -- lookup ----------------------------------------------------------------
+    def lookup(self, ids) -> torch.Tensor:
+        """Rows of ``(world * m,)`` global ids, shard ``w`` requesting
+        positions ``[w * m, (w + 1) * m)``; ``-1`` pads give zeros.
+        Returns ``(world * m, d)`` on :attr:`device`.
+
+        Raises:
+            ValueError: ``len(ids)`` is zero or not a multiple of the
+                mesh world size.
+        """
+        ids = ids.reshape(-1) if isinstance(ids, torch.Tensor) \
+            else np.asarray(ids).reshape(-1)
+        self._check_world_multiple(int(ids.shape[0]), "len(ids)")
+        return self._lookup(ids)
+
+    def lookup_hops(self, hops: Sequence) -> list[torch.Tensor]:
+        """Fused multi-hop :meth:`lookup`: ONE exchange over the
+        concatenated hop ids (under ``"alltoall"`` deduplicated across
+        hops, so a neighbor in several frontiers crosses once), rows split
+        back per hop; bit-identical to per-hop calls.
+
+        Args:
+            hops: ``(M_k,)`` id vectors (tensors or numpy), ``-1`` padded;
+                each ``M_k`` a non-zero multiple of the mesh world size.
+
+        Returns:
+            One ``(M_k, d)`` matrix per hop, on :attr:`device`.
+
+        Raises:
+            ValueError: no hop, or a hop length that is zero or not a
+                multiple of the mesh world size (the hop is named).
+        """
+        hops = [h.reshape(-1) if isinstance(h, torch.Tensor)
+                else np.asarray(h).reshape(-1) for h in hops]
+        if not hops:
+            raise ValueError("lookup_hops needs at least one hop")
+        sizes = [int(h.shape[0]) for h in hops]
+        for k, s in enumerate(sizes):
+            self._check_world_multiple(s, f"hop {k} length")
+        if all(isinstance(h, torch.Tensor) for h in hops):
+            ids = torch.cat([h.to(self.device) for h in hops])
+        else:
+            ids = np.concatenate([_host(h) for h in hops])
+        return list(torch.split(self._lookup(ids), sizes))
+
+    def _lookup(self, ids) -> torch.Tensor:
+        if self.strategy == "allgather":
+            return self._lookup_allgather(ids)
+        return self._lookup_dedup(_host(ids).astype(np.int64))
+
+    def _positions(self, g: _ShardGroup, m_dev: int) -> np.ndarray:
+        """Request positions of the shards of ``g``, in shard order."""
+        return np.concatenate([np.arange(s * m_dev, (s + 1) * m_dev)
+                               for s in g.shards])
+
+    def _lookup_allgather(self, ids) -> torch.Tensor:
+        """Baseline exchange: every wanted warm slot is published to every
+        owner, owners answer the slots they hold (zeros elsewhere) and the
+        answers are summed back to the requester; HOT and local WARM rows
+        are read in place; cold ids are resolved by a host post-pass."""
+        world, per = max(self.world, 1), self.rows_per_dev
+        ids_t = (ids if isinstance(ids, torch.Tensor)
+                 else torch.from_numpy(ids)).to(self.device)
+        m = int(ids_t.shape[0])
+        m_dev = m // world
+        parts = []
+        for g in self._groups:
+            pos = None if g.every else self._positions(g, m_dev)
+            my_np = (np.repeat(np.arange(world), m_dev) if pos is None
+                     else pos // m_dev)
+            if pos is None:
+                (my,) = _upload([my_np], g.device)
+                ids_g = ids_t.to(g.device)
+            else:
+                my, pos_t = _upload([my_np, pos], g.device)
+                ids_g = ids_t.to(g.device).index_select(0, pos_t)
+            safe = ids_g.long().clamp_min(0)
+            tier = g.tier_t[safe]
+            slot = g.slot_t[safe].long()
+            out = torch.where((tier == TIER_HOT)[:, None],
+                              g.hot[slot.clamp(0, g.hot.shape[0] - 1)], 0.0)
+            is_warm = tier == TIER_WARM
+            local = is_warm & (g.owner_t[safe].long() == my)
+            lrow = (slot - my * per).clamp(0, per - 1)
+            out = torch.where(local[:, None], g.warm[g.gpos[my] * per + lrow],
+                              out)
+            remote = is_warm & ~local
+            want = torch.where(remote, slot, -1)
+            answered = torch.zeros_like(out)
+            for owner in self._groups:
+                w = want.to(owner.device)
+                o = torch.div(w, per, rounding_mode="floor").clamp(
+                    0, world - 1)
+                gp = owner.gpos[o]
+                rows = owner.warm[gp.clamp_min(0) * per
+                                  + (w - o * per).clamp(0, per - 1)]
+                owned = (w >= 0) & (gp >= 0)
+                answered = answered + torch.where(
+                    owned[:, None], rows, 0.0).to(g.device)
+            out = torch.where(remote[:, None], answered, out)
+            parts.append((pos, torch.where((ids_g >= 0)[:, None], out, 0.0)))
+        out = self._assemble(parts, m)
+        # cold (HOST/DISK) post-pass, gated by the static tier mirror: a
+        # store with no cold tier never copies the ids to the host
+        if self._tiered is None or not self._has_cold:
+            return out
+        ids_np = _host(ids).reshape(-1)
+        cold = (ids_np >= 0) & (self._tier_np[np.maximum(ids_np, 0)]
+                                >= TIER_HOST)
+        if not cold.any():
+            return out
+        rows = self._tiered.read_cold_rows(ids_np[cold])
+        with self._stats_lock:
+            self.stats["host_fetches"] += 1
+            self.stats["cold_rows"] += int(cold.sum())
+        (idx,) = _upload([np.flatnonzero(cold)], out.device)
+        out.index_copy_(0, idx, torch.from_numpy(rows).to(out.device,
+                                                          out.dtype))
+        return out
+
+    def _assemble(self, parts: list, m: int) -> torch.Tensor:
+        """The ``(m, d)`` result on :attr:`device` from each group's rows
+        (``(None, rows)`` when one group holds every position)."""
+        if len(parts) == 1 and parts[0][0] is None:
+            return parts[0][1]
+        out = torch.zeros((m, self.feat_dim), dtype=parts[0][1].dtype,
+                          device=self.device)
+        for pos, rows in parts:
+            (idx,) = _upload([pos], self.device)
+            out.index_copy_(0, idx, rows.to(self.device))
+        return out
+
+    def _lookup_dedup(self, ids_np: np.ndarray) -> torch.Tensor:
+        """Owner-sorted, capacity-bounded dedup exchange (``"alltoall"``).
+
+        Host planning (the reference's numpy, step for step): each shard's
+        slice of the request vector is deduplicated across every hop,
+        classified per tier, and its distinct WARM/staged-cold ids sorted
+        by owner into a ``(world, world, cap)`` request tensor, ``cap`` the
+        pow2 ceiling of the largest per-(requester, owner) count. Then
+        :meth:`_exchange` moves requests to owners and rows back, HOT rows
+        come from the replica on the requester's device, and cold ids
+        without a staged row take one host fetch (:meth:`read_cold_rows`)
+        merged after the exchange, counted only when issued."""
+        world = max(self.world, 1)
+        per = self.rows_per_dev
+        m = ids_np.shape[0]
+        m_dev = m // world
+        stage = self._snapshot_stage()
+        stage_local = stage[0] if stage is not None else None
+
+        safe = np.maximum(ids_np, 0)
+        tier = self._tier_np[safe]
+        valid = ids_np >= 0
+        is_hot = valid & (tier == TIER_HOT)
+        is_warm = valid & (tier == TIER_WARM)
+        is_cold = valid & (tier >= TIER_HOST)
+        staged = (is_cold & (stage_local[safe] >= 0)
+                  if stage_local is not None
+                  else np.zeros(m, dtype=bool))
+        exch = is_warm | staged
+        miss = is_cold & ~staged
+
+        # owner + owner-local row into (warm_shard ++ stage_shard); values
+        # at non-exchange positions are never read
+        owner = np.where(is_warm, self._owner_np[safe], safe % world)
+        lrow = np.where(is_warm, self._slot_np[safe] - owner * per,
+                        per + (stage_local[safe]
+                               if stage_local is not None else 0))
+        # per-shard cross-hop dedup: shard i requests each distinct id of
+        # its slice once, whatever the hop multiplicity
+        dev = np.repeat(np.arange(world), m_dev)
+        eidx = np.flatnonzero(exch)
+        n = self._tier_np.shape[0]
+        pair = dev[eidx] * (n + 1) + ids_np[eidx]
+        upair, urep, uinv = np.unique(pair, return_index=True,
+                                      return_inverse=True)
+        rep = eidx[urep]
+        u_dev, u_own, u_row = dev[rep], owner[rep], lrow[rep]
+        # owner-sort within each shard (address-sorted requests)
+        order = np.lexsort((u_row, u_own, u_dev))
+        sd, so, sr = u_dev[order], u_own[order], u_row[order]
+        grp = sd * world + so
+        first = np.ones(grp.shape[0], dtype=bool)
+        first[1:] = grp[1:] != grp[:-1]
+        gstart = np.flatnonzero(first)
+        glen = np.diff(np.append(gstart, grp.shape[0]))
+        rank = np.arange(grp.shape[0]) - np.repeat(gstart, glen)
+        cmax = int(glen.max()) if glen.size else 0
+        cap = 1 << max(cmax - 1, 0).bit_length()
+        req = np.full((world * world, cap), -1, np.int32)
+        req[sd * world + so, rank] = sr
+        # per-unique index into its requester's flat (world*cap) answer
+        # buffer, fanned out to every request position
+        sel_u = np.zeros(upair.shape[0], np.int64)
+        sel_u[order] = so * cap + rank
+        sel = np.full(m, -1, np.int64)
+        sel[eidx] = sel_u[uinv]
+        hslot = np.where(is_hot, self._slot_np[safe], -1)
+
+        with self._stats_lock:
+            self.stats["exchanges"] += 1
+            self.stats["exchanged_ids"] += int(upair.shape[0])
+            self.stats["stage_hits"] += int(staged.sum())
+            self.stats["stage_misses"] += int(miss.sum())
+
+        out = self._exchange(req.reshape(world, world, cap), sel, hslot,
+                             stage)
+        if not miss.any():
+            return out
+        if self._tiered is None and self._spill is None:
+            return out    # no cold source: directly constructed store
+        miss_ids, minv = np.unique(ids_np[miss], return_inverse=True)
+        rows = self.read_cold_rows(miss_ids)[minv]
+        with self._stats_lock:
+            self.stats["host_fetches"] += 1
+            self.stats["cold_rows"] += int(miss.sum())
+        (idx,) = _upload([np.flatnonzero(miss)], out.device)
+        out.index_copy_(0, idx, torch.from_numpy(rows).to(out.device,
+                                                          out.dtype))
+        return out
+
+    def _exchange(self, req: np.ndarray, sel: np.ndarray, hslot: np.ndarray,
+                  stage) -> torch.Tensor:
+        """The data movement of the dedup exchange.
+
+        Owners: each device answers every request addressed to its shards
+        with one gather from its warm rows (staged rows copied over the
+        stage entries), giving ``(world, k·cap, d)`` answer blocks laid out
+        requester-major. Back: each requester device takes its requesters'
+        blocks from every owner device (``.to``: no copy on one card) and
+        reads its positions' rows from them, and its HOT rows from its
+        own replica; everything else stays zero.
+
+        Args:
+            req: ``(world, world, cap)`` owner-local rows per (requester,
+                owner), ``-1`` padded (rows ``>= rows_per_dev`` are staged
+                rows).
+            sel: ``(m,)`` index into the requester's ``(world·cap)``
+                answer buffer (``owner·cap + rank``), ``-1`` elsewhere.
+            hslot: ``(m,)`` HOT slot, ``-1`` elsewhere.
+            stage: the snapshot :meth:`publish_stage` published, or None.
+        """
+        world, cap = req.shape[0], req.shape[2]
+        per, d = self.rows_per_dev, self.feat_dim
+        m = sel.shape[0]
+        m_dev = m // world
+        n_hot = self.hot.shape[0]
+        answers = []
+        for gi, g in enumerate(self._groups):
+            lr = req[:, list(g.shards), :].astype(np.int64)   # (W, k, cap)
+            kpos = np.arange(len(g.shards))[None, :, None]
+            widx = kpos * per + np.clip(lr, 0, per - 1)
+            spos = np.flatnonzero((lr >= per).reshape(-1))
+            if spos.size:
+                sidx = (kpos * stage[2] + lr - per).reshape(-1)[spos]
+                widx_t, spos_t, sidx_t = _upload([widx, spos, sidx],
+                                                 g.device)
+                ans = g.warm.index_select(0, widx_t)
+                ans.index_copy_(0, spos_t,
+                                stage[1][gi].index_select(0, sidx_t))
+            else:
+                (widx_t,) = _upload([widx], g.device)
+                ans = g.warm.index_select(0, widx_t)
+            answers.append(ans.view(world, len(g.shards) * cap, d))
+        parts = []
+        for g in self._groups:
+            pos = None if g.every else self._positions(g, m_dev)
+            s = sel if pos is None else sel[pos]
+            h = hslot if pos is None else hslot[pos]
+            sp, hp = np.flatnonzero(s >= 0), np.flatnonzero(h >= 0)
+            r = (sp // m_dev if pos is None
+                 else g.gpos_np[pos[sp] // m_dev])
+            o, j = s[sp] // cap, s[sp] % cap
+            aidx = r * (world * cap) + self._opos[o] * cap + j
+            hidx = np.clip(h[hp], 0, n_hot - 1)
+            sp_t, aidx_t, hp_t, hidx_t = _upload([sp, aidx, hp, hidx],
+                                                 g.device)
+            if g.every:
+                back = answers[0]
+            else:   # this group's requester rows of every owner's block
+                back = torch.cat(
+                    [a.index_select(0, _upload([g.shards], a.device)[0])
+                     .to(g.device, non_blocking=True) for a in answers],
+                    dim=1)
+            out = torch.zeros((m if pos is None else pos.size, d),
+                              dtype=g.hot.dtype, device=g.device)
+            if hp.size:
+                out.index_copy_(0, hp_t, g.hot.index_select(0, hidx_t))
+            if sp.size:
+                out.index_copy_(0, sp_t,
+                                back.reshape(-1, d).index_select(0, aidx_t))
+            parts.append((pos, out))
+        return self._assemble(parts, m)

@@ -27,14 +27,24 @@ def _sample_one_hop(generator: torch.Generator, indptr: torch.Tensor,
     ``deg-1``), i.e. sampling with replacement. ``-1`` frontier entries
     yield ``-1`` rows.
     """
+    u = torch.rand((frontier.shape[0], fanout), generator=generator,
+                   device=frontier.device)
+    return hop_from_uniform(u, indptr, indices, frontier, fanout)
+
+
+def hop_from_uniform(u: torch.Tensor, indptr: torch.Tensor,
+                     indices: torch.Tensor, frontier: torch.Tensor,
+                     fanout: int) -> torch.Tensor:
+    """:func:`_sample_one_hop` given its ``(|frontier|, fanout)`` uniform
+    draws ``u``. Rows are independent, so the hop of a concatenated
+    frontier is the concatenation of each part's hop under its own draws
+    (how the sharded executor samples every shard of a card at once)."""
     f = frontier.long().clamp_min(0)
     start = indptr[f].long()
     deg = indptr[f + 1].long() - start
     valid = frontier >= 0
     deg = torch.where(valid, deg, 0)
     hi = deg.clamp_min(1)[:, None]
-    u = torch.rand((frontier.shape[0], fanout), generator=generator,
-                   device=frontier.device)
     r = torch.minimum((u * hi).long(), hi - 1)
     take_all = deg[:, None] <= fanout
     arange = torch.arange(fanout, device=frontier.device)[None, :]

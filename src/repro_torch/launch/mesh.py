@@ -1,0 +1,88 @@
+"""The device mesh of the distributed serve path: single-controller, as the
+reference's ``jax.sharding.Mesh`` is.
+
+One process holds an ordered tuple of devices with one axis name; shard
+``i`` of a sharded tensor lives on ``devices[i]``. Asking for more shards
+than there are cards places them round-robin, so several logical shards
+share one card (the counterpart of running the reference on one host with
+``--xla_force_host_platform_device_count``): work for the shards of one
+card is batched into one op, and a move between two shards of one card is
+no copy at all.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """An ordered tuple of devices along one named axis.
+
+    Attributes:
+        devices: shard ``i`` lives on ``devices[i]``; a device may repeat.
+        axis_name: the axis' name (the launcher's is ``"x"``).
+    """
+
+    devices: tuple
+    axis_name: str = "x"
+
+    def __post_init__(self):
+        if not self.devices:
+            raise ValueError("a mesh needs at least one device")
+        object.__setattr__(self, "devices",
+                           tuple(torch.device(d) for d in self.devices))
+
+    @property
+    def shape(self) -> dict[str, int]:
+        """``{axis_name: world}``, as ``jax.sharding.Mesh.shape``."""
+        return {self.axis_name: len(self.devices)}
+
+    @property
+    def world(self) -> int:
+        return len(self.devices)
+
+    def groups(self) -> list[tuple[torch.device, tuple[int, ...]]]:
+        """``(device, shard indices)`` for each distinct device, in the
+        order of its first shard."""
+        out: dict[str, tuple[torch.device, list[int]]] = {}
+        for i, dev in enumerate(self.devices):
+            out.setdefault(str(dev), (dev, []))[1].append(i)
+        return [(dev, tuple(shards)) for dev, shards in out.values()]
+
+
+def make_host_mesh(world: Optional[int] = None, *,
+                   device: str | torch.device = "cuda") -> Mesh:
+    """A one-axis mesh (axis ``"x"``) of ``world`` shards over the cards
+    of this host.
+
+    Args:
+        world: shards; defaults to the number of cards (1 on the CPU).
+            Shards beyond the cards are placed round-robin.
+        device: ``"cuda"`` (every card, from card 0) or ``"cpu"`` (every
+            shard on the CPU).
+
+    Raises:
+        RuntimeError: ``cuda`` was asked for and no card exists.
+        ValueError: ``world`` below 1.
+    """
+    dev = resolve_device(device)
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 1
+    world = cards if world is None else int(world)
+    if world < 1:
+        raise ValueError(f"a mesh needs at least one shard, got {world}")
+    if dev.type == "cpu":
+        return Mesh((dev,) * world)
+    return Mesh(tuple(torch.device("cuda", i % cards) for i in range(world)))
+
+
+def mesh_world(mesh: Mesh) -> int:
+    """Shards in ``mesh`` (the product of its axis sizes)."""
+    world = 1
+    for size in mesh.shape.values():
+        world *= int(size)
+    return world

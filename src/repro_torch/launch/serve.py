@@ -24,8 +24,13 @@ dispatch, and ``--telemetry`` prints its streaming samples. Repeatable
 ``--models name=preset`` co-serves several GraphSAGE models over the one
 shared store, each with its own calibration and router.
 
-The distributed store's flags (``--sharded``, ``--sharded-spill-dir``)
-are not ported and are rejected like any unknown flag.
+``--sharded`` adds the distributed executor: the store rebuilt over a
+single-controller mesh of ``--mesh-world`` shards (default: one a card;
+shards beyond the cards share them round-robin, so ``--mesh-world 4``
+runs four shards on one card), HOT rows replicated and WARM rows sharded
+by FAP owner, read through the dedup exchange; ``--sharded-spill-dir``
+gives each shard its own DISK spill file. With ``--models`` every model
+gets a sharded executor over the one sharded store.
 """
 from __future__ import annotations
 
@@ -38,18 +43,19 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import (DynamicBatcher, GPUFeatureCache, Prefetcher,
-                              TieredFeatureStore, TopologySpec,
-                              WorkloadGenerator, compute_fap, compute_psgs,
-                              quiver_placement)
+                              ShardedFeatureStore, TieredFeatureStore,
+                              TopologySpec, WorkloadGenerator, compute_fap,
+                              compute_psgs, quiver_placement)
 from repro_torch.graph import power_law_graph
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.gnn_basic import SAGE, sage_init
 from repro_torch.serving import (AdaptiveConfig, AdaptiveController,
                                  CostModelRouter, DeviceExecutor,
                                  FrequencySketch, GatewayConfig,
                                  HostExecutor, MicroBatcher, ModelRegistry,
                                  ServingEngine, ServingGateway,
-                                 StaticScheduler, build_model_entry,
-                                 calibrate_executors)
+                                 ShardedExecutor, StaticScheduler,
+                                 build_model_entry, calibrate_executors)
 
 # --models presets: hidden layer widths of the GraphSAGE each model serves
 # (all share the graph, store and samplers; only the model compute
@@ -147,11 +153,81 @@ def parse_model_specs(specs: list[str]) -> dict[str, tuple[int, ...]]:
     return models
 
 
+def require_shards(world: int) -> None:
+    """Exit unless the sharded store has at least two shards."""
+    if world < 2:
+        raise SystemExit(
+            "--sharded needs ≥2 shards; on one card or the CPU set "
+            "--mesh-world (e.g. --mesh-world 4)")
+
+
+def mesh_world_of(args: argparse.Namespace) -> int:
+    """``--mesh-world``, defaulting to the number of cards (1 on the
+    CPU)."""
+    if args.mesh_world is not None:
+        return args.mesh_world
+    return torch.cuda.device_count() if args.device == "cuda" else 1
+
+
+def build_sharded_store(graph, feats, fap, *, hot_frac: float = 0.25,
+                        spill_dir: Optional[str] = None,
+                        world: Optional[int] = None,
+                        device: str | torch.device = "cuda"):
+    """Mesh and sharded feature store shared by every model's sharded
+    executor (built once: co-serving keeps one copy of the rows). The
+    placement is rebuilt over the mesh, with HBM (hot + warm) sized to
+    cover every node as the reference sizes it; with ``spill_dir`` the
+    DISK rows are split into per-shard spill files (shard = id % world).
+
+    Returns:
+        ``(mesh, sstore, splan)``.
+
+    Raises:
+        SystemExit: fewer than two shards.
+    """
+    mesh = make_host_mesh(world, device=device)
+    require_shards(mesh.world)
+    print(f"[serve] sharded: {mesh.world} shards on "
+          f"{[str(d) for d, _ in mesh.groups()]}")
+    topo = TopologySpec(num_pods=1, devices_per_pod=mesh.world,
+                        rows_per_device=max(-(-graph.num_nodes // mesh.world),
+                                            64),
+                        rows_host=max(graph.num_nodes // 2, 64),
+                        hot_replicate_fraction=hot_frac)
+    splan = quiver_placement(fap, topo)
+    sstore = ShardedFeatureStore.from_tiered(
+        TieredFeatureStore.build(feats, splan, device=mesh.devices[0]),
+        mesh, "x", spill_dir=spill_dir)
+    return mesh, sstore, splan
+
+
+def sharded_executor(graph, sharded, fanouts, infer_fn, psgs, *,
+                     max_batch: int, rng_seed: int = 0, fused: bool = True,
+                     fuse_aggregate: bool = False) -> ShardedExecutor:
+    """The distributed executor over a :func:`build_sharded_store` result;
+    the placement's tier table keeps cold-seed batches off it, as the
+    reference launcher does."""
+    mesh, sstore, splan = sharded
+    return ShardedExecutor(
+        mesh, "x", graph.device_arrays(sstore.device), sstore, fanouts,
+        infer_fn, max_batch=max_batch, psgs_table=psgs,
+        tier_table=splan.tier, rng_seed=rng_seed, fused=fused,
+        fuse_aggregate=fuse_aggregate)
+
+
 def build_executors(graph, store, fanouts, infer_fn, psgs, *,
-                    num_workers: int, max_batch: int, fused: bool = True,
-                    fuse_aggregate: bool = False) -> dict:
-    """Host + device executors over the shared store."""
-    return {
+                    num_workers: int, max_batch: int, sharded: bool = False,
+                    feats=None, fap=None, hot_frac: float = 0.25,
+                    fused: bool = True, fuse_aggregate: bool = False,
+                    sharded_spill_dir: Optional[str] = None,
+                    mesh_world: Optional[int] = None) -> dict:
+    """Host + device executors over the shared store, plus with
+    ``sharded`` the distributed executor over a sharded store built from
+    ``feats`` and ``fap`` (:func:`build_sharded_store`, ``mesh_world``
+    shards on the store's device type). ``fuse_aggregate`` folds the
+    innermost hop into the gather; the sharded executor downgrades it with
+    a one-time warning (its store serves whole rows only)."""
+    executors = {
         "host": HostExecutor(graph, store, fanouts, infer_fn,
                              capacity=num_workers, psgs_table=psgs,
                              fused=fused, fuse_aggregate=fuse_aggregate),
@@ -160,28 +236,53 @@ def build_executors(graph, store, fanouts, infer_fn, psgs, *,
                                  capacity=num_workers, psgs_table=psgs,
                                  fused=fused, fuse_aggregate=fuse_aggregate),
     }
+    if sharded:
+        parts = build_sharded_store(graph, feats, fap, hot_frac=hot_frac,
+                                    spill_dir=sharded_spill_dir,
+                                    world=mesh_world,
+                                    device=store.device.type)
+        executors["sharded"] = sharded_executor(
+            graph, parts, fanouts, infer_fn, psgs, max_batch=max_batch,
+            fused=fused, fuse_aggregate=fuse_aggregate)
+    return executors
 
 
-def make_prefetcher(args, store, fap, controller, hooks):
+def make_prefetcher(args, store, fap, controller, hooks, *,
+                    sstore=None) -> list:
     """``--prefetch`` wiring shared by the single- and multi-model paths:
     build the cold-tier prefetcher, hand it to the adaptive controller
     (refresh per control step, shared sketch) or, without ``--adaptive``,
     register it as an engine hook with its own sketch and refresh cadence,
-    then stage the offline-FAP prediction before serving starts."""
+    then stage the offline-FAP prediction before serving starts. With a
+    sharded store (``sstore``) a second prefetcher drives its per-shard
+    stages from the same signal (the controller's sketch, or the first
+    prefetcher's).
+
+    Returns:
+        The prefetchers built, the single-host store's first (empty
+        without ``--prefetch``).
+    """
     if not args.prefetch:
-        return None
-    pf = Prefetcher(store, budget=args.prefetch_budget,
-                    refresh_every=(None if controller is not None
-                                   else args.adapt_interval))
-    if controller is not None:
-        controller.attach_prefetcher(pf)
-    else:
-        pf.sketch = FrequencySketch(store.plan.tier.shape[0])
-        hooks.append(pf)
-    staged = pf.refresh(scores=fap)
-    print(f"[serve] prefetch: staged {staged} cold rows "
-          f"(budget {args.prefetch_budget})")
-    return pf
+        return []
+    pfs = []
+    for st in (store, sstore):
+        if st is None:
+            continue
+        pf = Prefetcher(st, budget=args.prefetch_budget,
+                        refresh_every=(None if controller is not None
+                                       else args.adapt_interval))
+        if controller is not None:
+            controller.attach_prefetcher(pf)
+        else:
+            pf.sketch = (pfs[0].sketch if pfs
+                         else FrequencySketch(store.plan.tier.shape[0]))
+            hooks.append(pf)
+        pfs.append(pf)
+        staged = pf.refresh(scores=fap)
+        where = " across the mesh shards" if st is sstore else ""
+        print(f"[serve] prefetch: staged {staged} cold rows{where} "
+              f"(budget {args.prefetch_budget})")
+    return pfs
 
 
 def make_gpu_cache(args, store, controller):
@@ -309,13 +410,14 @@ def make_controller(args, graph, fanouts, store, router, psgs):
 
 
 def _serve_engine(args, engine, psgs, gen, store, fap, controller, hooks,
-                  models=None) -> dict:
+                  models=None, sstore=None) -> dict:
     """Attach the cold path and the gateway to ``engine``, serve the
-    request stream, and close the prefetcher and the engine whatever
+    request stream, and close the prefetchers and the engine whatever
     happens."""
-    prefetcher = cache = None
+    prefetchers, cache = [], None
     try:
-        prefetcher = make_prefetcher(args, store, fap, controller, hooks)
+        prefetchers = make_prefetcher(args, store, fap, controller, hooks,
+                                      sstore=sstore)
         cache = make_gpu_cache(args, store, controller)
         for h in hooks:
             engine.add_hook(h)
@@ -324,23 +426,26 @@ def _serve_engine(args, engine, psgs, gen, store, fap, controller, hooks,
                                models=models,
                                **priority_stream_kwargs(args)))
         return _serve_and_report(args, engine, psgs, reqs, controller,
-                                 prefetcher, cache, gateway)
+                                 prefetchers[0] if prefetchers else None,
+                                 cache, gateway)
     finally:
         try:
             engine.close()
         finally:
-            if prefetcher is not None:
-                prefetcher.close()
+            for pf in prefetchers:
+                pf.close()
 
 
 def serve_multi_model(args, fanouts, graph, psgs, fap, store, gen, *,
-                      hooks: Sequence = ()) -> dict:
+                      sharded=None, hooks: Sequence = ()) -> dict:
     """The ``--models`` path: one engine, one shared store, N models.
 
     Per model: its own ``infer_fn`` (preset hidden widths), executor set
-    over the shared store, calibration and router, so each model gets its
-    own PSGS cut-point. Requests are tagged round-robin across the models;
-    admission stays global; the report breaks down per model.
+    over the shared store (with ``sharded``, a :func:`build_sharded_store`
+    result, also a sharded executor over the one sharded store),
+    calibration and router, so each model gets its own PSGS cut-point.
+    Requests are tagged round-robin across the models; admission stays
+    global; the report breaks down per model.
     """
     specs = parse_model_specs(args.models)
     order = np.argsort(psgs)
@@ -350,11 +455,14 @@ def serve_multi_model(args, fanouts, graph, psgs, fap, store, gen, *,
     for i, (name, hidden) in enumerate(specs.items()):
         infer = make_model_infer_fn(args.d_feat, hidden, fanouts, seed=i,
                                     device=store.device)
+        extra = None if sharded is None else {"sharded": sharded_executor(
+            graph, sharded, fanouts, infer, psgs, max_batch=args.batch,
+            rng_seed=i, fused=args.fused)}
         entry = build_model_entry(
             name, graph=graph, store=store, fanouts=fanouts, infer_fn=infer,
             psgs_table=psgs, policy=args.policy, capacity=args.workers,
             max_batch=args.batch, fused=args.fused, rng_seed=i,
-            calibration_batches=cal_batches)
+            calibration_batches=cal_batches, extra_executors=extra)
         registry.add(entry)
         cut = entry.router.crossover("host", "device")
         print(f"[serve] model {name!r} ({'x'.join(map(str, hidden))}): "
@@ -368,7 +476,8 @@ def serve_multi_model(args, fanouts, graph, psgs, fap, store, gen, *,
     engine = ServingEngine(registry, max_inflight=args.max_inflight,
                            admission=args.admission)
     return _serve_engine(args, engine, psgs, gen, store, fap, controller,
-                         hooks, models=list(specs))
+                         hooks, models=list(specs),
+                         sstore=None if sharded is None else sharded[1])
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -388,6 +497,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                             "latency_preferred", "throughput_preferred",
                             "host_only", "device_only"])
     p.add_argument("--hot-frac", type=float, default=0.25)
+    p.add_argument("--sharded", action="store_true",
+                   help="register the distributed executor over the sharded "
+                        "store (needs ≥2 shards, see --mesh-world)")
+    p.add_argument("--mesh-world", type=int, default=None,
+                   help="shards of the sharded store's mesh (default: the "
+                        "number of cards, 1 on --device cpu); shards beyond "
+                        "the cards share them round-robin (needs --sharded)")
     p.add_argument("--max-inflight", type=int, default=64,
                    help="admission window: outstanding batches")
     p.add_argument("--admission", default="wait", choices=["wait", "shed"],
@@ -461,6 +577,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--spill-path", default=None,
                    help="write DISK-tier rows to an np.memmap spill file at "
                         "this path; omit to keep them in host memory")
+    p.add_argument("--sharded-spill-dir", default=None,
+                   help="directory for the sharded store's per-shard spill "
+                        "files (shard = id %% world); omit to serve sharded "
+                        "cold misses from the single-host source store "
+                        "(needs --sharded)")
     args = p.parse_args(argv)
     if args.adapt_micro and not (args.adaptive and args.micro_batch > 0):
         raise SystemExit("--adapt-micro needs --adaptive and "
@@ -472,6 +593,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     if args.gateway and args.micro_batch > 0:
         raise SystemExit("--gateway dispatches per request (admission "
                          "ordering is the point); drop --micro-batch")
+    if args.sharded_spill_dir is not None and not args.sharded:
+        raise SystemExit("--sharded-spill-dir needs --sharded")
+    if args.mesh_world is not None and not args.sharded:
+        raise SystemExit("--mesh-world needs --sharded")
+    if args.sharded:
+        require_shards(mesh_world_of(args))
     if args.models:
         if args.policy in ("host_only", "device_only"):
             raise SystemExit("--models needs a cost-model policy "
@@ -504,19 +631,35 @@ def serve(args: argparse.Namespace, *, stack: Optional[tuple] = None,
           f" tiers: {store.plan.tier_counts()}; device: {store.device}"
           + (f"; spill: {store.disk.path}" if store.disk.path else ""))
     if args.models:
+        sharded = None
+        if args.sharded:
+            sharded = build_sharded_store(
+                graph, feats, fap, hot_frac=args.hot_frac,
+                spill_dir=args.sharded_spill_dir, world=mesh_world_of(args),
+                device=store.device.type)
         return serve_multi_model(args, fanouts, graph, psgs, fap, store, gen,
-                                 hooks=hooks)
+                                 sharded=sharded, hooks=hooks)
+    static = args.policy in ("host_only", "device_only")
+    if args.sharded and static:
+        print("[serve] note: static policy can never route to the sharded "
+              "executor; skipping its construction")
     executors = build_executors(graph, store, fanouts, infer_fn, psgs,
                                 num_workers=args.workers,
-                                max_batch=args.batch, fused=args.fused,
-                                fuse_aggregate=args.fuse_aggregate)
+                                max_batch=args.batch,
+                                sharded=args.sharded and not static,
+                                feats=feats, fap=fap,
+                                hot_frac=args.hot_frac, fused=args.fused,
+                                fuse_aggregate=args.fuse_aggregate,
+                                sharded_spill_dir=args.sharded_spill_dir,
+                                mesh_world=mesh_world_of(args))
+    print(f"[serve] executors: {sorted(executors)}")
+    sstore = getattr(executors.get("sharded"), "sstore", None)
     try:
         router = _calibrated_router(args, executors, graph, psgs)
     except BaseException:
         for ex in executors.values():
             ex.close()
         raise
-    static = args.policy in ("host_only", "device_only")
     hooks = list(hooks)
     controller = make_controller(args, graph, fanouts, store,
                                       None if static else router, psgs)
@@ -525,7 +668,7 @@ def serve(args: argparse.Namespace, *, stack: Optional[tuple] = None,
     engine = ServingEngine(executors, router, max_inflight=args.max_inflight,
                            admission=args.admission)
     return _serve_engine(args, engine, psgs, gen, store, fap, controller,
-                         hooks)
+                         hooks, sstore=sstore)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:

@@ -1,8 +1,9 @@
 """Serving stack: executors, cost-model routing, the model registry, the
 futures-based engine, the SLO gateway in front of it and the online
-adaptation loop (single host).
+adaptation loop.
 
-    executors.py  Host/Device executors over the tiered store
+    executors.py  Host/Device executors over the tiered store, the
+                  Sharded executor over the sharded store
     router.py     LatencyCurve calibration, CostModelRouter (N-way), the
                   binary HybridScheduler and StaticScheduler
     registry.py   ModelRegistry/ModelEntry: N models sharing the store,
@@ -17,7 +18,7 @@ adaptation loop (single host).
 """
 from repro_torch.serving.executors import (BaseExecutor, DeviceExecutor,
                                            Executor, HostExecutor,
-                                           pad_to_bucket)
+                                           ShardedExecutor, pad_to_bucket)
 from repro_torch.serving.router import (POLICIES, CalibrationResult,
                                         CostModelRouter, HybridScheduler,
                                         LatencyCurve, StaticScheduler,
@@ -35,7 +36,7 @@ from repro_torch.serving.adaptive import (AdaptiveConfig, AdaptiveController,
 
 __all__ = [
     "Executor", "BaseExecutor", "HostExecutor", "DeviceExecutor",
-    "pad_to_bucket", "POLICIES", "LatencyCurve", "CalibrationResult",
+    "ShardedExecutor", "pad_to_bucket", "POLICIES", "LatencyCurve", "CalibrationResult",
     "calibrate", "calibrate_executors", "CostModelRouter",
     "HybridScheduler", "StaticScheduler", "DEFAULT_MODEL", "ModelEntry",
     "ModelRegistry", "build_model_entry", "ServingEngine", "ServeMetrics",

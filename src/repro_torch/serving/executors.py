@@ -4,6 +4,9 @@
   ``DeviceExecutor``   padded static-shape sampling on the device (GPU
                        path); oversized batches are chunked, never
                        truncated.
+  ``ShardedExecutor``  the distributed path: each mesh shard samples its
+                       slice of the seeds, features come from the sharded
+                       store's exchange.
 
 Every executor owns ``capacity`` worker lanes (threads) and exposes
 ``cost(seeds)`` (accumulated PSGS), ``submit(seeds)`` → a
@@ -12,6 +15,7 @@ Every executor owns ``capacity`` worker lanes (threads) and exposes
 from __future__ import annotations
 
 import threading
+import warnings
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, Optional, Protocol, Sequence, runtime_checkable
 
@@ -19,7 +23,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.graph.sampler import device_sample, host_sample_dense
+from repro_torch.graph.sampler import (device_sample, hop_from_uniform,
+                                       host_sample_dense)
 
 
 def pad_to_bucket(arr: np.ndarray, *, min_size: int = 16,
@@ -129,11 +134,13 @@ class BaseExecutor:
 
     def _collect(self, store, hops):
         """``(hop_feats, deep_agg)``: ``store.lookup_aggregate`` under
-        ``fuse_aggregate`` (``hop_feats`` then omits the innermost hop),
-        else ``store.lookup_hops`` (``fused``) or per-hop lookups."""
-        if self.fuse_aggregate and len(hops) > 1:
+        ``fuse_aggregate`` where the store has it (``hop_feats`` then omits
+        the innermost hop), else ``store.lookup_hops`` (``fused``) or
+        per-hop lookups."""
+        if (self.fuse_aggregate and len(hops) > 1
+                and hasattr(store, "lookup_aggregate")):
             return store.lookup_aggregate(hops)
-        if self.fused:
+        if self.fused and hasattr(store, "lookup_hops"):
             return store.lookup_hops(hops), None
         return [store.lookup(h) for h in hops], None
 
@@ -144,11 +151,14 @@ class BaseExecutor:
         return self.infer_fn(hop_feats, hops)
 
     def collect_mode(self, store) -> str:
-        """The feature-collection path :meth:`_collect` takes:
-        ``"fuse_aggregate"``, ``"fused"`` or ``"per_hop"``."""
-        if self.fuse_aggregate:
+        """The feature-collection path :meth:`_collect` takes for ``store``
+        on a multi-hop sample: ``"fuse_aggregate"``, ``"fused"`` or
+        ``"per_hop"`` (a flag the store cannot honour is downgraded)."""
+        if self.fuse_aggregate and hasattr(store, "lookup_aggregate"):
             return "fuse_aggregate"
-        return "fused" if self.fused else "per_hop"
+        if self.fused and hasattr(store, "lookup_hops"):
+            return "fused"
+        return "per_hop"
 
     def supports(self, seeds: np.ndarray) -> bool:
         """Eligibility for a batch (routers skip executors returning
@@ -156,9 +166,10 @@ class BaseExecutor:
         return True
 
     def stores(self) -> list:
-        """The feature store(s) this executor reads."""
-        store = getattr(self, "store", None)
-        return [store] if store is not None else []
+        """The feature store(s) this executor reads (the engine reports
+        their dispatch counters)."""
+        return [s for s in (getattr(self, "store", None),
+                            getattr(self, "sstore", None)) if s is not None]
 
     def run(self, seeds: np.ndarray) -> torch.Tensor:
         """Synchronous path: process, then wait for the device."""
@@ -256,4 +267,128 @@ class DeviceExecutor(BaseExecutor):
                                  torch.from_numpy(seeds_p).to(self.device),
                                  self.fanouts)
             outs.append(self._infer(self.store, hops)[:chunk.shape[0]])
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+
+
+def _shard_seed(child: int, shard: int) -> int:
+    """The sampling seed of one shard: the batch's child seed folded with
+    the shard index (the counterpart of ``fold_in(key, axis_index)``)."""
+    return int(np.random.SeedSequence([child, shard])
+               .generate_state(1, np.uint64)[0])
+
+
+class ShardedExecutor(BaseExecutor):
+    """Distributed serving path over a mesh axis.
+
+    Each shard samples its contiguous slice of the (mesh-padded) seed
+    vector against the replicated CSR, from its own ``torch.Generator``
+    (the batch's child seed folded with the shard index); the shards of one
+    device are sampled together, each from its own draws. Features come
+    from the sharded store's fused ``lookup_hops`` (by default the
+    owner-sorted dedup exchange of paper §5.3); a store built with
+    ``ShardedFeatureStore.from_tiered`` resolves HOST/DISK rows exactly.
+    A directly constructed store reads cold ids as zeros: pass
+    ``tier_table`` (the placement's per-node tiers) there, so
+    :meth:`supports` declares cold-seed batches ineligible and the router
+    keeps them elsewhere.
+
+    The sharded store serves whole rows only, so ``fuse_aggregate=True``
+    warns once and falls back to ``lookup_hops``; :meth:`collect_mode`
+    reports the mode taken. ``max_batch`` is rounded up to a multiple of
+    the mesh world size so every shard's slice has one static size.
+    """
+
+    kind = "device"
+    _warned_fuse_aggregate = False
+
+    def __init__(self, mesh, axis_name: str,
+                 graph_dev: tuple[torch.Tensor, torch.Tensor],
+                 sharded_store, fanouts: Sequence[int], infer_fn: Callable,
+                 *, max_batch: int = 128, capacity: int = 1,
+                 psgs_table: Optional[np.ndarray] = None,
+                 tier_table: Optional[np.ndarray] = None, rng_seed: int = 0,
+                 fused: bool = True, fuse_aggregate: bool = False,
+                 name: str = "sharded"):
+        super().__init__(name, device=sharded_store.device,
+                         capacity=capacity, psgs_table=psgs_table,
+                         rng_seed=rng_seed, fused=fused,
+                         fuse_aggregate=fuse_aggregate)
+        if fuse_aggregate and not hasattr(sharded_store, "lookup_aggregate"):
+            self._warn_fuse_aggregate_downgrade()
+        self.tier_table = tier_table
+        self.mesh = mesh
+        self.axis = axis_name
+        self.sstore = sharded_store
+        self.world = int(sharded_store.world)
+        self.max_batch = -(-int(max_batch) // self.world) * self.world
+        self.fanouts = tuple(fanouts)
+        self.infer_fn = infer_fn
+        # (device, shards, replicated (indptr, indices)) per mesh device
+        self._groups = [(dev, shards, tuple(a.to(dev) for a in graph_dev))
+                        for dev, shards in mesh.groups()]
+
+    @classmethod
+    def _warn_fuse_aggregate_downgrade(cls) -> None:
+        if cls._warned_fuse_aggregate:
+            return
+        cls._warned_fuse_aggregate = True
+        warnings.warn(
+            "ShardedExecutor: fuse_aggregate=True has no effect — the "
+            "sharded store serves whole rows only (no lookup_aggregate); "
+            "falling back to the fused lookup_hops path. The active mode "
+            "is reported as collect_mode in "
+            "ServeMetrics.summary()['store'].", RuntimeWarning, stacklevel=3)
+
+    def supports(self, seeds: np.ndarray) -> bool:
+        """Eligible only when every valid seed lives on a device tier
+        (HOT/WARM), where ``tier_table`` is set; always ``True``
+        without it (stores built with ``from_tiered`` are exact for
+        every id)."""
+        if self.tier_table is None:
+            return True
+        seeds = np.asarray(seeds)
+        seeds = seeds[seeds >= 0]
+        return bool((self.tier_table[seeds] <= 1).all())
+
+    def sample(self, seeds_p: np.ndarray, child: int) -> list[torch.Tensor]:
+        """The hops of one mesh-padded seed vector on the store's device:
+        shard ``w`` samples ``seeds_p[w*m:(w+1)*m]`` from a generator
+        seeded with ``_shard_seed(child, w)``, and hop ``k`` is the shards'
+        hops ``k`` in shard order."""
+        m = seeds_p.shape[0] // self.world
+        per_shard: dict[int, list[torch.Tensor]] = {}
+        for dev, shards, (indptr, indices) in self._groups:
+            gens = [torch.Generator(device=dev).manual_seed(
+                _shard_seed(child, s)) for s in shards]
+            frontier = torch.from_numpy(np.concatenate(
+                [seeds_p[s * m:(s + 1) * m] for s in shards])).to(dev)
+            hops = [frontier]
+            rows = m
+            for fan in self.fanouts:
+                u = torch.cat([torch.rand((rows, fan), generator=gen,
+                                          device=dev) for gen in gens])
+                frontier = hop_from_uniform(u, indptr, indices, frontier,
+                                            fan)
+                hops.append(frontier)
+                rows *= fan
+            for i, s in enumerate(shards):
+                per_shard[s] = [h.view(len(shards), -1)[i] for h in hops]
+        if len(self._groups) == 1:
+            return hops
+        return [torch.cat([per_shard[s][k].to(self.device)
+                           for s in range(self.world)])
+                for k in range(len(self.fanouts) + 1)]
+
+    def process(self, seeds: np.ndarray) -> torch.Tensor:
+        """Per-shard sampling → sharded feature reads → inference, chunked
+        at the mesh-padded ``max_batch``; one output row per seed."""
+        seeds = np.asarray(seeds)
+        n = int(seeds.shape[0])
+        outs = []
+        for lo in range(0, max(n, 1), self.max_batch):
+            chunk = seeds[lo:lo + self.max_batch]
+            seeds_p = np.full((self.max_batch,), -1, np.int32)
+            seeds_p[:chunk.shape[0]] = chunk
+            hops = self.sample(seeds_p, self._child_seed())
+            outs.append(self._infer(self.sstore, hops)[:chunk.shape[0]])
         return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)

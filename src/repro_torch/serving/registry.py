@@ -163,13 +163,15 @@ def build_model_entry(name: str, *, graph, store, fanouts: Sequence[int],
                       rng_seed: int = 0,
                       calibration_batches: Optional[Sequence[np.ndarray]] = None,
                       calibration_repeats: int = 2,
-                      load_aware: bool = False) -> ModelEntry:
+                      load_aware: bool = False,
+                      extra_executors: Optional[dict] = None) -> ModelEntry:
     """Build one model's host+device executor pair against a *shared* store,
     calibrate it, and wrap the result in a :class:`ModelEntry`.
 
-    This is the recipe ``launch/serve.py --models`` uses; callers with
-    extra executors or pre-fit curves assemble the entry by hand instead.
-    The executors run on the store's device.
+    This is the recipe ``launch/serve.py --models`` uses (with
+    ``--sharded``, through ``extra_executors``); callers with pre-fit
+    curves assemble the entry by hand instead. The executors run on the
+    store's device.
 
     Args:
         name: model tag (``ModelEntry.name``).
@@ -188,6 +190,8 @@ def build_model_entry(name: str, *, graph, store, fanouts: Sequence[int],
             defaults to 6 PSGS-spread slices of the node set.
         calibration_repeats: steady-state repeats per probe batch.
         load_aware: forwarded to the model's router.
+        extra_executors: further executors of this model (the launcher's
+            sharded executor), calibrated and routed beside the pair.
 
     Returns:
         A fully calibrated :class:`ModelEntry` ready for
@@ -201,6 +205,7 @@ def build_model_entry(name: str, *, graph, store, fanouts: Sequence[int],
                                  fanouts, infer_fn, max_batch=max_batch,
                                  capacity=capacity, psgs_table=psgs_table,
                                  rng_seed=rng_seed, fused=fused),
+        **(extra_executors or {}),
     }
     if calibration_batches is None:
         order = np.argsort(psgs_table)

@@ -13,7 +13,7 @@ Restart semantics: :meth:`latest_step` returns the newest step whose
 manifest exists, so a directory a crashed writer left without one is
 ignored, and stale ``tmp_*`` directories are removed when a manager opens
 the directory. Not ported: restoring onto a mesh ("elastic restore";
-ROADMAP A10).
+ROADMAP A10b).
 """
 from __future__ import annotations
 

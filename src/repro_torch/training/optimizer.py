@@ -13,7 +13,7 @@ Parameters are named tensors (``dict(model.named_parameters())``). The
 update writes them in place under ``torch.no_grad`` — the reference
 returns new arrays; in place keeps the model's own tensors and saves a
 copy of each. Not ported: the int8 gradient-compression helpers (they come
-with data parallelism, ROADMAP A10).
+with data parallelism, ROADMAP A10b).
 """
 from __future__ import annotations
 

@@ -558,3 +558,57 @@ def test_stage_churn_and_migration_exact_on_card(card):
     pf.close()
     assert not any(t.is_alive() for t in threads)
     assert not errors and dev.migrated_rows > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["alltoall", "allgather"])
+def test_sharded_lookups_card_match_cpu(card, strategy, tmp_path):
+    """Four logical shards on the card: the sharded exchange, with its
+    stage (uploaded by the prefetcher, rebinned on the card) on and off and
+    per-shard spill files, equals the port on the CPU bit for bit and
+    counter for counter, -0.0 rows included."""
+    from repro_torch.core import (Prefetcher, ShardedFeatureStore,
+                                  TieredFeatureStore, TopologySpec,
+                                  quiver_placement)
+    from repro_torch.launch.mesh import make_host_mesh
+    rng = np.random.default_rng(0)
+    n, d = 4000, 128
+    feats = rng.normal(size=(n, d)).astype(np.float32)
+    feats[rng.choice(n, 400, replace=False)] = -0.0
+    fap = rng.random(n)
+    topo = TopologySpec(num_pods=1, devices_per_pod=4, rows_per_device=250,
+                        rows_host=1000, hot_replicate_fraction=0.25)
+    plan = quiver_placement(fap, topo)
+    stores, pfs = [], []
+    for dev in (card, torch.device("cpu")):
+        ss = ShardedFeatureStore.from_tiered(
+            TieredFeatureStore.build(feats, plan, device=dev),
+            make_host_mesh(4, device=dev.type), "x", strategy,
+            spill_dir=str(tmp_path / dev.type))
+        stores.append(ss)
+        pfs.append(Prefetcher(ss, budget=512))
+    assert stores[0].device.type == "cuda"
+    for staged in (False, True, False):
+        for ss, pf in zip(stores, pfs):
+            if staged:
+                pf.refresh(scores=fap)
+            else:
+                ss.publish_stage(None, None)
+        for step in range(3):
+            hops = [rng.integers(-1, n, s).astype(np.int32)
+                    for s in (32, 320, 1600)]
+            hops[2][:320] = hops[1]
+            seen = [[r.cpu() for r in ss.lookup_hops(
+                [torch.from_numpy(h).to(ss.device) for h in hops])]
+                for ss in stores]
+            for x, y in zip(*seen):
+                assert x.view(torch.int32).equal(y.view(torch.int32))
+    assert stores[0].snapshot_stats() == stores[1].snapshot_stats()
+    st = stores[0].snapshot_stats()
+    if strategy == "alltoall":   # allgather reads cold rows from the source
+        assert st["exchanges"] > 0 and st["stage_hits"] > 0
+        assert st["spill_reads"] > 0
+    else:
+        assert st["host_fetches"] > 0
+    for pf in pfs:
+        pf.close()

@@ -2,8 +2,9 @@
 gateway and multi-model serving, on the CPU at a small size: each flag
 runs to the end and reports the reference's keys (the summary of the JAX
 package's ``ServeMetrics`` and the reports of its controller, prefetcher,
-cache and gateway); the cross-flag checks exit as the reference's do; the
-distributed store's flags stay rejected."""
+cache and gateway); the cross-flag checks exit as the reference's do;
+``--sharded`` serves over a mesh of logical shards on the CPU and reports
+the sharded store's counters, feeding both prefetchers."""
 import sys
 from types import SimpleNamespace
 
@@ -19,7 +20,9 @@ from repro.serving import GatewayConfig as JaxGatewayConfig
 from repro.serving import ModelStats as JaxModelStats
 from repro.serving import ServeMetrics as JaxServeMetrics
 from repro.serving import ServingGateway as JaxGateway
-from repro_torch.core import STATS_SCHEMA
+from repro_torch.core import (SHARDED_STATS_SCHEMA, STATS_SCHEMA,
+                              Prefetcher, ShardedFeatureStore,
+                              TieredFeatureStore)
 from repro_torch.launch import serve as launcher
 from repro_torch.serving import ModelEntry, build_model_entry
 
@@ -130,12 +133,70 @@ def test_models_flag_checks(argv, match):
             jax_launcher.parse_model_specs(argv[1::2])
 
 
-@pytest.mark.parametrize("flag", ["--sharded", "--sharded-spill-dir=d"])
-def test_distributed_flags_stay_rejected(flag, capsys):
-    with pytest.raises(SystemExit) as err:
-        launcher.parse_args([flag])
-    assert err.value.code != 0
-    assert "unrecognized arguments" in capsys.readouterr().err
+@pytest.mark.parametrize("argv,match", [
+    (["--sharded"], "--sharded needs ≥2 shards"),
+    (["--sharded", "--mesh-world", "1"], "--sharded needs ≥2 shards"),
+    (["--mesh-world", "4"], "--mesh-world needs --sharded"),
+    (["--sharded-spill-dir=d"], "--sharded-spill-dir needs --sharded"),
+], ids=["--sharded", "--sharded --mesh-world 1", "--mesh-world 4",
+        "--sharded-spill-dir=d"])
+def test_distributed_flags_stay_rejected(argv, match, monkeypatch):
+    """The distributed store's flags refuse what the reference refuses:
+    a spill directory without ``--sharded`` (the same message), and
+    fewer than two shards (the reference's message, with ``--mesh-world``
+    in place of its fake-device flag); ``--mesh-world`` needs
+    ``--sharded``."""
+    with pytest.raises(SystemExit, match=match):
+        launcher.parse_args(["--device", "cpu", *argv])
+    if argv == ["--sharded-spill-dir=d"]:
+        monkeypatch.setattr(sys, "argv", ["serve", *argv])
+        with pytest.raises(SystemExit) as theirs:
+            jax_launcher.main()
+        assert str(theirs.value) == match
+
+
+@pytest.mark.parametrize("extra", [[], ["--fuse-aggregate"],
+                                   ["--models", "a=sage-base", "--models",
+                                    "b=sage-wide"]],
+                         ids=["fused", "fuse-aggregate", "models"])
+def test_sharded_launcher_serves_on_cpu(extra, tmp_path, monkeypatch):
+    """``--sharded --mesh-world 4 --device cpu`` serves to the end, reports
+    the sharded store's section beside the single-host store's, and with
+    ``--prefetch`` refreshes a prefetcher over each store; the per-shard
+    spill files are written (``--hot-frac 0.9`` leaves DISK rows in the
+    sharded placement)."""
+    refreshed = []
+    refresh = Prefetcher.refresh
+
+    def spy(self, scores=None):
+        refreshed.append(type(self.store))
+        return refresh(self, scores)
+
+    monkeypatch.setattr(Prefetcher, "refresh", spy)
+    spill = tmp_path / "shards"
+    out = launcher.main(SMALL + [
+        "--sharded", "--mesh-world", "4", "--prefetch", "--hot-frac", "0.9",
+        "--sharded-spill-dir", str(spill), *extra])
+    assert out["requests"] == 12
+    sharded = out["store"]["ShardedFeatureStore"]
+    assert set(sharded) == set(SHARDED_STATS_SCHEMA) | {"collect_mode"}
+    assert sharded["exchanges"] > 0 and sharded["exchanged_ids"] > 0
+    assert sharded["collect_mode"] == "fused"
+    assert set(out["store"]["TieredFeatureStore"]) == (
+        set(STATS_SCHEMA) | {"collect_mode"})
+    assert {TieredFeatureStore, ShardedFeatureStore} <= set(refreshed)
+    assert sorted(p.name for p in spill.iterdir()) == [
+        f"shard{w:03d}.spill" for w in range(4)]
+    if "--models" in extra:
+        assert set(out["models"]) == {"a", "b"}
+
+
+def test_static_policy_skips_the_sharded_executor(capsys):
+    out = launcher.main(SMALL + ["--sharded", "--mesh-world", "2",
+                                 "--policy", "device_only"])
+    assert out["requests"] == 12 and set(out["routed"]) == {"device"}
+    assert "ShardedFeatureStore" not in out["store"]
+    assert "static policy can never route" in capsys.readouterr().out
 
 
 def test_presets_and_stream_kwargs_match_reference():
