@@ -138,6 +138,28 @@ Phases (any failed check exits non-zero before the result line):
              stores within 1e-4, the bf16 cache within one bf16 ulp plus
              1e-4; bf16 serving weights and activations within
              ``LM_BF16_CPU_TOL``.
+7b. moe   — deepseek-moe-16b serving at its published widths and 28
+             layers, after phase 7's memory is freed: ``repro_torch.launch.
+             lm --arch deepseek-moe-16b`` at its defaults (a 32,768-token
+             prefill, 16 greedy decode steps, bf16 weights, fp32 routers)
+             with the ``flash_attention`` counter zeroed just before and
+             read just after (exactly 28 launches a request, all causal);
+             logits finite, ids in the vocabulary, peak device memory under
+             the card's total; the prefill's router stats reported (dropped
+             assignments are counted, not failed), every expert's load at
+             most its capacity and kept + dropped = T·k in every layer.
+             Logs prefill ms, decode ms a token, peak GiB, the dropped
+             share and ``expert_placement(layer-0 load, 4, 4)``. The kernel
+             at layer 0's q/k/v there (1, 32768, 16|16, 128), bf16 and cast
+             to fp32, within ``ref.tolerance`` of its plain version, timed
+             beside the plain version and SDPA (the ``kernels`` entry's
+             ``deepseek_moe_16b`` key). Then card vs CPU at full width with
+             2 layers and a 257-token prompt, fp32 and bf16: each layer's
+             ``top_e`` compared (a differing token is reported with its gap
+             between the k-th and (k+1)-th router probabilities, and that
+             layer's MoE output is held with the card's routing fed to the
+             CPU: fp32 within 1e-4, bf16 within ``MOE_BF16_ULPS`` ulps);
+             fp32 logits within 1e-4, bf16 within ``LM_BF16_CPU_TOL``.
 8. summary — one ``{"kernels": [...]}`` line, then the result line
              ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -171,7 +193,6 @@ EPS_GRAD_TOL = 1e-2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 BF16_TENSOR_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
-LM_LAYERS = 36             # qwen3-4b: one flash_attention launch a layer
 LM_CAPTURE_LAYERS = (0, 35)
 LM_CPU_LAYERS = 2          # card vs CPU: full width, depth cut to 2
 LM_CPU_PROMPT = 257
@@ -190,6 +211,12 @@ GRID_STRIDE_SEGMENTS = 200_000  # more segments than the grid holds at once
 COLD_ADAPT_INTERVAL = 16   # control period of the cold-path runs (default 32)
 GATEWAY_DEADLINE_MS = 250  # interactive requests' deadline in the gateway run
 CHURN_STEPS = 6            # control steps beside a reader thread
+MOE_ARCH = "deepseek-moe-16b"  # phase 7b: MoE serving at full width and depth
+MOE_KEY = "deepseek_moe_16b"   # its flash_attention numbers in the entry
+# card vs CPU, one MoE layer in bf16 on the same routing: bf16 ulps of the
+# output's largest magnitude (both sides round the expert products, the
+# SiLU and each of the k combine adds; tests/test_torch_moe.py's bound)
+MOE_BF16_ULPS = 4
 SHARDED_WORLD = 4          # logical shards of phase 4c on one card
 SHARDED_HOT_FRAC = 0.25    # the launcher's --hot-frac
 
@@ -1833,14 +1860,17 @@ def train_phase(entry: dict) -> None:
 # ---------------------------------------------------------------------------
 # phase 7
 # ---------------------------------------------------------------------------
-def lm_serve_phase() -> tuple[dict, dict, int]:
-    """The LM launcher at its defaults with the ``flash_attention`` counter
-    zeroed just before and read just after; keeps the q/k/v that layers
-    ``LM_CAPTURE_LAYERS`` hand the kernel. Returns (report, captures,
-    launches)."""
+def serve_lm(argv: list, capture: tuple) -> tuple[dict, dict, int]:
+    """The LM launcher on ``argv`` (``serve(parse_args(argv))``) with the
+    ``flash_attention`` counter zeroed just before and read just after;
+    keeps the q/k/v of the prefill calls numbered in ``capture``
+    (references, no copy). Checks one causal launch a layer and request,
+    finite logits, ids in the vocabulary and the timings. Returns
+    (report, captures, launches)."""
     import math
 
     import torch
+    from repro_torch.configs import LM_ARCHS
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch import lm as lm_launcher
@@ -1849,18 +1879,48 @@ def lm_serve_phase() -> tuple[dict, dict, int]:
     original = fa_ops.flash_attention
 
     def recorder(q, k, v, *, causal=True):
-        if len(calls) in LM_CAPTURE_LAYERS:
+        if len(calls) in capture:
             captured[len(calls)] = (q, k, v)
         calls.append(causal)
         return original(q, k, v, causal=causal)
 
+    args = lm_launcher.parse_args(argv)
+    cfg = LM_ARCHS[args.arch]
     fa_ops.flash_attention = recorder
     fa.LAUNCHES.reset()
     try:
-        report = lm_launcher.main(["--device", "cuda"])
+        report = lm_launcher.serve(args)
     finally:
         fa_ops.flash_attention = original
     launches = fa.LAUNCHES.value
+    req = report["requests"]
+    check(launches == cfg.n_layers * len(req), f"{args.arch} serving "
+          f"launched flash_attention {launches} times for {len(req)} "
+          f"request(s), not {cfg.n_layers} each")
+    check(all(calls) and len(calls) == launches, f"{args.arch} prefill "
+          "attention calls were not all causal kernel launches")
+    check(report["logits_finite"], f"{args.arch} serving logits not finite")
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(report["peak_bytes"] < total, f"{args.arch} peak device memory "
+          f"{report['peak_bytes']} B over the card's {total} B")
+    for r in req:
+        ids = [i for row in r["generated"] for i in row]
+        check(len(ids) == args.batch * (args.new_tokens + 1)
+              and all(0 <= i < cfg.vocab for i in ids),
+              f"{args.arch} generated ids {r['generated']} not in the "
+              "vocabulary")
+        check(math.isfinite(r["prefill_ms"])
+              and math.isfinite(r["decode_ms_per_token"]),
+              f"{args.arch} timings missing")
+    return report, captured, launches
+
+
+def lm_serve_phase() -> tuple[dict, dict, int]:
+    """qwen3-4b through the LM launcher at its defaults (:func:`serve_lm`),
+    keeping the q/k/v that layers ``LM_CAPTURE_LAYERS`` hand the kernel.
+    Returns (report, captures, launches)."""
+    report, captured, launches = serve_lm(["--device", "cuda"],
+                                          LM_CAPTURE_LAYERS)
     req = report["requests"]
     log(f"lm serve ({report['arch']}, {report['params']:,} params, batch "
         f"{report['batch']}, prompt {report['prompt_len']}, "
@@ -1870,26 +1930,55 @@ def lm_serve_phase() -> tuple[dict, dict, int]:
         f"launches {launches}, peak device memory "
         f"{report['peak_bytes'] / 2**30:.2f} GiB (with the 0.75 GiB of "
         f"captured layer inputs)")
-    check(launches == LM_LAYERS * len(req), f"lm serving launched "
-          f"flash_attention {launches} times for {len(req)} request(s), not "
-          f"{LM_LAYERS} each")
-    check(all(causal for causal in calls) and len(calls) == launches,
-          "lm prefill attention calls were not all causal kernel launches")
-    check(report["logits_finite"], "lm serving logits not finite")
-    from repro_torch.configs import LM_ARCHS
-    vocab = LM_ARCHS[report["arch"]].vocab
-    for r in req:
-        ids = [i for row in r["generated"] for i in row]
-        check(len(ids) == report["batch"] * (report["new_tokens"] + 1)
-              and all(0 <= i < vocab for i in ids),
-              f"lm generated ids {r['generated']} not in the vocabulary")
-        check(math.isfinite(r["prefill_ms"])
-              and math.isfinite(r["decode_ms_per_token"]),
-              "lm timings missing")
     print(json.dumps({"lm_serve": {k: report[k] for k in (
         "arch", "params", "batch", "prompt_len", "new_tokens", "requests",
         "peak_bytes")}, "launches": launches}), flush=True)
     return report, captured, launches
+
+
+def hold_flash(q, k, v, what: str, causal: bool = True) -> float:
+    """The kernel against its plain version at (q, k, v): fail unless
+    within ``ref.tolerance``; returns the max |diff|."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    got = fa.flash_attention_cuda(q, k, v, causal=causal)
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    diff = float((got.float() - want.float()).abs().max())
+    check(fa_ref.within_tolerance(got, want), f"flash_attention off its "
+          f"plain version ({what}): max |diff| {diff:.3g}")
+    return diff
+
+
+def flash_times(q, k, v) -> dict:
+    """Causal kernel, plain version and ``F.scaled_dot_product_attention``
+    (the port never calls it) at (q, k, v), eager, 1 call a sample; the
+    bound from this input's bytes and flops (bf16 tensor-core peak)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    b, s, h, dh = q.shape
+    kvh = k.shape[2]
+    nbytes = (2 * b * s * h * dh + 2 * b * s * kvh * dh) * q.element_size()
+    flops = 4 * b * h * dh * s * (s + 1) // 2
+    row = {
+        "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v), inner=1,
+                      reps=3, graph=False),
+        "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v),
+                            inner=1, reps=3, graph=False),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), inner=1, reps=3,
+            graph=False),
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                        flops / BF16_TENSOR_FLOPS) * 1e3,
+        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                     >= flops / BF16_TENSOR_FLOPS else "operations"),
+        "flops": flops, "bytes": nbytes}
+    row["tflops"] = flops / row["ms"] / 1e9
+    row["over_bound"] = row["ms"] / row["bound_ms"]
+    row["over_library"] = row["ms"] / row["library_ms"]
+    return row
 
 
 def flash_attention_phase(captured: dict) -> dict:
@@ -1900,18 +1989,12 @@ def flash_attention_phase(captured: dict) -> dict:
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
-    from repro_torch.kernels.flash_attention import ref as fa_ref
 
     err = 0.0
 
     def held(q, k, v, what, causal=True):
         nonlocal err
-        got = fa.flash_attention_cuda(q, k, v, causal=causal)
-        want = fa.flash_attention_plain(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        diff = float((got.float() - want.float()).abs().max())
-        check(fa_ref.within_tolerance(got, want), f"flash_attention off its "
-              f"plain version ({what}): max |diff| {diff:.3g}")
+        diff = hold_flash(q, k, v, what, causal)
         err = max(err, diff)
         return diff
 
@@ -1974,28 +2057,14 @@ def flash_attention_phase(captured: dict) -> dict:
     del lib
     b, s, h, dh = q.shape
     kvh = k.shape[2]
-    nbytes = (2 * b * s * h * dh + 2 * b * s * kvh * dh) * q.element_size()
-    flops = 4 * b * h * dh * s * (s + 1) // 2
+    times = flash_times(q, k, v)
+    flops, nbytes = times["flops"], times["bytes"]
     row = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:81",
-        "max_abs_err": err,
-        "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v), inner=1,
-                      reps=3, graph=False),
-        "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v),
-                            inner=1, reps=3, graph=False),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), inner=1, reps=3,
-            graph=False),
-        "bound_ms": max(nbytes / HBM_BYTES_PER_S,
-                        flops / BF16_TENSOR_FLOPS) * 1e3,
-        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                     >= flops / BF16_TENSOR_FLOPS else "operations"),
+        "max_abs_err": err, **times,
         "design": fa_kernel.DESIGNS[q.dtype]}
-    row["tflops"] = flops / row["ms"] / 1e9
-    row["over_bound"] = row["ms"] / row["bound_ms"]
-    row["over_library"] = row["ms"] / row["library_ms"]
     # -Xptxas -v per compiled kernel (registers, stack, spills): reported
     res = build.ptxas_resources(build.build_log("flash_attention"))
     log(f"flash_attention layer 0 (1, {s}, {h}|{kvh}, {dh}) bf16 causal, "
@@ -2082,8 +2151,185 @@ def lm_cpu_phase() -> None:
         flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 7b
+# ---------------------------------------------------------------------------
+def moe_serve_phase() -> tuple[dict, dict, int]:
+    """deepseek-moe-16b through the LM launcher at its defaults
+    (:func:`serve_lm`), keeping layer 0's q/k/v; checks each request's
+    router stats: every expert's load at most its capacity and kept +
+    dropped = T·k in every layer. Returns (report, captures, launches)."""
+    import numpy as np
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.core import expert_placement
+
+    cfg = LM_ARCHS[MOE_ARCH]
+    report, captured, launches = serve_lm(
+        ["--arch", MOE_ARCH, "--device", "cuda"], (0,))
+    req = report["requests"]
+    for r in req:
+        st = r["moe_prefill"]
+        load = np.asarray(st["expert_load_by_layer"])
+        dropped = np.asarray(st["dropped_by_layer"])
+        check(load.shape == (cfg.n_layers, cfg.moe.num_experts)
+              and isinstance(st["dropped"], int),
+              f"{MOE_ARCH} router stats missing: {st.keys()}")
+        check(bool((load <= st["capacity"]).all()), f"{MOE_ARCH} an "
+              f"expert's load {load.max()} over its capacity "
+              f"{st['capacity']}")
+        check(bool((load.sum(1) + dropped == st["assignments"]).all()),
+              f"{MOE_ARCH} kept + dropped assignments != T·k "
+              f"({st['assignments']}) in some layer")
+    st = req[0]["moe_prefill"]
+    share = st["max_load_share_by_layer"]
+    reps = expert_placement(np.asarray(st["expert_load_by_layer"][0]), 4, 4)
+    log(f"moe serve ({MOE_ARCH}, {report['params']:,} params, "
+        f"{report['active_params']:,} active, batch {report['batch']}, "
+        f"prompt {report['prompt_len']}, {report['new_tokens']} new "
+        f"tokens): prefill {req[0]['prefill_ms']:.1f} ms, decode "
+        f"{req[0]['decode_ms_per_token']:.2f} ms/token, flash_attention "
+        f"launches {launches}, peak device memory "
+        f"{report['peak_bytes'] / 2**30:.2f} GiB (with the 0.38 GiB of "
+        f"captured layer-0 inputs); capacity {st['capacity']} a expert, "
+        f"dropped {st['dropped']} of {st['assignments'] * cfg.n_layers} "
+        f"assignments ({st['dropped_share']:.4f}), largest load over "
+        f"capacity {min(share):.3f}-{max(share):.3f} by layer; "
+        f"expert_placement(layer-0 load, 4, 4) = {reps.tolist()}")
+    print(json.dumps({"moe_serve": {k: report[k] for k in (
+        "arch", "params", "active_params", "batch", "prompt_len",
+        "new_tokens", "peak_bytes")} | {"requests": [
+            {k: v for k, v in r.items() if k != "moe_prefill"}
+            | {"moe_prefill": {k: v for k, v in r["moe_prefill"].items()
+                               if k != "expert_load_by_layer"}}
+            for r in req]}, "launches": launches,
+        "expert_placement_layer0_4_4": reps.tolist()}), flush=True)
+    return report, captured, launches
+
+
+def moe_flash_phase(captured: dict, launches: int) -> dict:
+    """``flash_attention`` at deepseek-moe-16b's layer-0 q/k/v (bf16 and
+    cast to fp32) against its plain version, and timed beside it and SDPA.
+    Returns the numbers for the kernel's ``kernels`` entry."""
+    import torch
+    q, k, v = captured[0]
+    err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        err = max(err, hold_flash(q.to(dtype), k.to(dtype), v.to(dtype),
+                                  f"{MOE_ARCH} layer 0, {dtype}"))
+    times = flash_times(q, k, v)
+    flops, nbytes = times["flops"], times["bytes"]
+    row = {"call_site": f"{MOE_ARCH} prefill", "shape": list(q.shape)
+           + [k.shape[2]], "launches": launches, "max_abs_err": err,
+           **times}
+    log(f"flash_attention at {MOE_ARCH} layer 0 {tuple(q.shape)}|"
+        f"{k.shape[2]} bf16 causal: within tolerance of plain (bf16, fp32; "
+        f"max |diff| {err:.3g}); kernel {row['ms']:.3f} ms "
+        f"({row['tflops']:.1f} TFLOP/s), {row['over_bound']:.2f}x the bound "
+        f"{row['bound_ms']:.3f} ms ({flops} flops, {nbytes} bytes, "
+        f"{row['bound_by']}), {row['over_library']:.2f}x "
+        f"scaled_dot_product_attention {row['library_ms']:.3f} ms, plain "
+        f"{row['plain_ms']:.1f} ms")
+    return row
+
+
+def moe_cpu_phase() -> None:
+    """deepseek-moe-16b at full width with ``LM_CPU_LAYERS`` layers and
+    ``LM_CPU_PROMPT`` tokens: the card's prefill against the port on the
+    CPU, same weights and prompt, fp32 and bf16. Each layer's experts
+    (``top_e``) are compared; where they differ, the tokens and their gap
+    between the k-th and (k+1)-th router probabilities are reported, and
+    that layer's MoE output is held with the card's routing fed to the
+    CPU."""
+    import torch
+    from repro_torch.configs import deepseek_moe_16b
+    from repro_torch.kernels.flash_attention.ref import bf16_ulp
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(deepseek_moe_16b.CONFIG,
+                              n_layers=LM_CPU_LAYERS, dtype="float32")
+    k = cfg.moe.top_k
+    t0 = time.perf_counter()
+    cpu = tf.lm_init(torch.Generator().manual_seed(0), cfg)
+    tokens = torch.randint(0, cfg.vocab, (1, LM_CPU_PROMPT),
+                           generator=torch.Generator().manual_seed(1))
+    original = moe_mod.moe_route
+    report = {}
+    for dtype, cfg_d in ((torch.float32, cfg),
+                         (torch.bfloat16, dataclasses.replace(
+                             cfg, dtype="bfloat16"))):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            model = tf.LM(cfg_d, dtype=dtype, device=dev)
+            model.load_state_dict(cpu.state_dict())
+            routes, outs = [], []
+
+            def route(m, x, c):
+                r = original(m, x, c)
+                routes.append([t.cpu() for t in (x, *r)])
+                return r
+
+            hooks = [b.moe.register_forward_hook(
+                lambda mod, inp, out: outs.append(out.cpu()))
+                for b in model.layers]
+            moe_mod.moe_route = route
+            try:
+                logits, _ = tf.lm_prefill(model, tokens.to(dev), cfg_d)
+            finally:
+                moe_mod.moe_route = original
+                for h in hooks:
+                    h.remove()
+            runs[dev] = (logits.cpu(), routes, outs)
+            if dev == "cuda":
+                del model
+        (cl, croutes, couts), (pl, proutes, pouts) = runs["cuda"], runs["cpu"]
+        flips = []
+        for i, ((x, probs, top_w, top_e), (_, _, _, p_e)) in enumerate(
+                zip(croutes, proutes)):
+            differ = (top_e != p_e).any(-1).nonzero().flatten()
+            if differ.numel() == 0:
+                continue
+            srt = probs.sort(-1, descending=True).values
+            gaps = (srt[differ, k - 1] - srt[differ, k]).tolist()
+            with torch.no_grad():
+                got, _ = moe_mod.moe_apply_routed(model.layers[i].moe, x,
+                                                  cfg.moe, probs, top_w,
+                                                  top_e)
+            want = couts[i]
+            diff = float((got.float() - want.float()).abs().max())
+            allow = (CPU_TOL if dtype == torch.float32 else
+                     MOE_BF16_ULPS * float(bf16_ulp(want.abs().max())))
+            check(diff <= allow, f"{MOE_ARCH} card vs CPU ({dtype}) layer "
+                  f"{i}: MoE output with the card's routing max |diff| "
+                  f"{diff:.3g} > {allow:.3g}")
+            flips.append({"layer": i, "tokens": differ.tolist(),
+                          "gap_k_k1": gaps, "routed_max_abs_diff": diff})
+        same_out = [float((a.float() - b.float()).abs().max())
+                    for a, b in zip(couts, pouts)]
+        del model
+        ld = float((cl - pl).abs().max())
+        limit = CPU_TOL if dtype == torch.float32 else LM_BF16_CPU_TOL
+        check(ld <= limit, f"{MOE_ARCH} card vs CPU ({dtype}) logits max "
+              f"|diff| {ld:.3g} > {limit}")
+        report[str(dtype)] = {"logits_max_abs_diff": ld,
+                              "moe_out_max_abs_diff": same_out,
+                              "routing_differs": flips}
+        log(f"{MOE_ARCH} card vs CPU at full width, {LM_CPU_LAYERS} layers, "
+            f"prompt {LM_CPU_PROMPT}, {dtype}: logits max |diff| {ld:.3g} "
+            f"(limit {limit}); MoE outputs max |diff| by layer "
+            f"{[f'{d:.3g}' for d in same_out]}; top_e equal in "
+            f"{LM_CPU_LAYERS - len(flips)} of {LM_CPU_LAYERS} layers"
+            + (f", differing: {flips}" if flips else ""))
+    log(f"{MOE_ARCH} card vs CPU set-up and runs: "
+        f"{time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"moe_card_vs_cpu": {
+        "arch": MOE_ARCH, "layers": LM_CPU_LAYERS, "prompt": LM_CPU_PROMPT,
+        **report}}), flush=True)
+
+
 def main() -> None:
     import torch
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: needs an NVIDIA GPU")
     src = ROOT / "src"
@@ -2160,12 +2406,27 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     lm_cpu_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7b. MoE lm
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, captured, launches = moe_serve_phase()
+    entry[MOE_KEY] = moe_flash_phase(captured, launches)
+    del captured
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_cpu_phase()
+    log(f"moe phase in {time.perf_counter() - t0:.1f} s")
     results.append(entry)
 
     # 8. summary
+    log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("design", "floor_ms", "tflops", "over_bound", "over_library")
+    extra = ("design", "floor_ms", "tflops", "over_bound", "over_library",
+             MOE_KEY)
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
         for r in results]}), flush=True)

@@ -15,14 +15,23 @@ the full length:
    with the QKV bias and the residual add); ``flash`` (the kernel);
    ``ffn`` (the SwiGLU GEMMs with their activation, product and residual
    add); ``cache`` (the bf16 cache writes); ``unembed`` (final norm and
-   logits). The report says whether its logits equal ``lm_prefill``'s bit
-   for bit, i.e. whether the split timed the same computation.
+   logits). For an MoE arch the FFN is split instead into ``router``
+   (fp32 logits, softmax, top-k, and the router stats), ``dispatch`` (the
+   slots and the dispatch buffer), ``experts`` (the three batched
+   products and the SiLU gate), ``combine`` (the gather back, the
+   weighting, the ordered fold and the residual add) and ``shared`` (the
+   shared experts and their add). The report says whether its logits
+   equal ``lm_prefill``'s bit for bit, i.e. whether the split timed the
+   same computation.
 2. ``lm_prefill`` under ``torch.profiler``: host-clock wall, device busy
    time (the sum of device kernel and copy durations) and idle share
    ``1 - busy / wall``, and the device time by kernel name.
 3. ``new-tokens`` decode steps on the prefill's cache timed on the host
    clock, then ``new-tokens`` more under the profiler for the same
    busy/idle split.
+
+For an MoE arch the report adds the prefill's router stats
+(``repro_torch.launch.lm.moe_prefill_report``).
 
 Prints one JSON report and writes it to ``--out`` if given. Needs a card.
 """
@@ -40,15 +49,16 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import LM_ARCHS
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.launch.lm import WEIGHT_DTYPE
+from repro_torch.launch.lm import WEIGHT_DTYPE, moe_prefill_report
+from repro_torch.models import moe as moe_ops
 from repro_torch.models.attention import apply_rope
 from repro_torch.models.transformer import (_logits, _rope,
                                             init_decode_cache,
                                             lm_decode_step, lm_init,
                                             lm_prefill)
 
-STAGES = ("embed", "norms_rope", "qkv_o_gemm", "flash", "ffn", "cache",
-          "unembed")
+STAGES = ("embed", "norms_rope", "qkv_o_gemm", "flash", "ffn", "router",
+          "dispatch", "experts", "combine", "shared", "cache", "unembed")
 
 
 class _Stages:
@@ -70,11 +80,46 @@ class _Stages:
         self.marks.append((name, start, end))
 
     def totals(self) -> dict[str, float]:
+        """Summed ms of each stage that ran, in ``STAGES`` order."""
         torch.cuda.synchronize()
-        out = dict.fromkeys(STAGES, 0.0)
+        ran = {name for name, _, _ in self.marks}
+        out = {name: 0.0 for name in STAGES if name in ran}
         for name, start, end in self.marks:
             out[name] += start.elapsed_time(end)
         return out
+
+
+def staged_moe(st: _Stages, h: torch.Tensor, x: torch.Tensor, m
+               ) -> torch.Tensor:
+    """``h + MoE(x)`` for ``x (B, S, d)`` as ``moe_apply`` computes it,
+    stage by stage; the stats are kept in ``m.last_stats``."""
+    b, s, d = x.shape
+    cfg = m.cfg
+    x = x.reshape(b * s, d)
+    st.start("router")
+    probs, top_w, top_e = moe_ops.moe_route(m, x, cfg)
+    st.stop()
+    st.start("dispatch")
+    plan = moe_ops.moe_plan(top_e, cfg)
+    dispatch = moe_ops.moe_dispatch(x, plan, cfg)
+    st.stop()
+    st.start("experts")
+    y = moe_ops.moe_experts(m, dispatch)
+    st.stop()
+    st.start("combine")
+    out = moe_ops.moe_combine(y, plan, top_w)
+    st.stop()
+    if cfg.n_shared:
+        st.start("shared")
+        out = out + moe_ops.moe_shared(m, x)
+        st.stop()
+    st.start("router")
+    m.last_stats = moe_ops.moe_stats(probs, top_e, plan, cfg)
+    st.stop()
+    st.start("combine")
+    h = h + out.reshape(b, s, d)
+    st.stop()
+    return h
 
 
 @torch.no_grad()
@@ -117,10 +162,13 @@ def staged_prefill(model, tokens, cfg) -> tuple[torch.Tensor, dict]:
         st.start("norms_rope")
         x = blk.ln2(h)
         st.stop()
-        st.start("ffn")
-        g = F.silu(x @ blk.w1.to(x.dtype))
-        h = h + (g * (x @ blk.w3.to(x.dtype))) @ blk.w2.to(x.dtype)
-        st.stop()
+        if cfg.moe is not None:
+            h = staged_moe(st, h, x, blk.moe)
+        else:
+            st.start("ffn")
+            g = F.silu(x @ blk.w1.to(x.dtype))
+            h = h + (g * (x @ blk.w3.to(x.dtype))) @ blk.w2.to(x.dtype)
+            st.stop()
         st.start("cache")
         cache["k"][i] = k
         cache["v"][i] = v
@@ -170,6 +218,8 @@ def main(argv=None) -> dict:
         prefill_wall = time.perf_counter() - t0
     prefill_busy, prefill_top = _device_busy_ms(prof)
     same = bool(torch.equal(staged, logits))
+    moe = (moe_prefill_report(model, args.prompt_len)
+           if cfg.moe is not None else None)
 
     n = args.new_tokens
     dcache = init_decode_cache(cfg, 1, args.prompt_len + 2 * n, device=dev)
@@ -209,6 +259,9 @@ def main(argv=None) -> dict:
         "decode_top_device_ms": decode_top,
         "peak_bytes": torch.cuda.max_memory_allocated(dev),
     }
+    if moe is not None:
+        report["moe_prefill"] = {k: v for k, v in moe.items()
+                                 if k != "expert_load_by_layer"}
     print(json.dumps(report), flush=True)
     if args.out:
         with open(args.out, "w") as f:

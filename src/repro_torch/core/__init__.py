@@ -8,7 +8,8 @@ from repro_torch.core.feature_store import (SHARDED_STATS_SCHEMA,
                                             TieredFeatureStore)
 from repro_torch.core.gpu_cache import GPUFeatureCache
 from repro_torch.core.placement import (PlacementPlan, TopologySpec,
-                                        migration_pairs, quiver_placement)
+                                        expert_placement, migration_pairs,
+                                        quiver_placement)
 from repro_torch.core.prefetch import Prefetcher
 from repro_torch.core.psgs import compute_psgs
 from repro_torch.core.serving import (PRIORITIES, DynamicBatcher, Request,
@@ -17,6 +18,7 @@ from repro_torch.core.serving import (PRIORITIES, DynamicBatcher, Request,
 __all__ = [
     "compute_psgs", "compute_fap", "TopologySpec",
     "PlacementPlan", "quiver_placement", "migration_pairs",
+    "expert_placement",
     "TieredFeatureStore", "ShardedFeatureStore", "DiskSpillTier",
     "STATS_SCHEMA", "SHARDED_STATS_SCHEMA",
     "GPUFeatureCache", "Prefetcher", "Request", "WorkloadGenerator",

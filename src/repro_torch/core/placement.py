@@ -1,6 +1,7 @@
 """Workload-aware feature placement (paper §5.2): numpy copy of the
-reference's ``core/placement.py`` (``quiver_placement``, its types, and
-``migration_pairs`` for serve-time re-placement).
+reference's ``core/placement.py`` (``quiver_placement``, its types,
+``migration_pairs`` for serve-time re-placement, and ``expert_placement``,
+FAP's analogue for MoE experts).
 
 Tiers: HOT rows are replicated in every device's memory, WARM rows are
 partitioned across devices, HOST rows live in host RAM and DISK rows in
@@ -210,3 +211,25 @@ def migration_pairs(current_tier: np.ndarray, target_tier: np.ndarray,
             if len(pairs) >= budget:
                 break
     return pairs
+
+
+# ---------------------------------------------------------------------------
+# FAP-style placement for MoE experts
+# ---------------------------------------------------------------------------
+def expert_placement(expert_prob: np.ndarray, num_devices: int,
+                     replication_budget: int) -> np.ndarray:
+    """Distribute ``replication_budget`` extra expert replicas by access
+    probability (router statistics ≙ FAP, e.g. an MoE layer's
+    ``expert_load``). Returns (num_experts,) replica counts ≥ 1, at most
+    ``num_devices``; proportional (largest-remainder) allocation, the
+    remainders ranked by the reference's own ``np.argsort``, so ties fall
+    as they do there."""
+    p = np.asarray(expert_prob, dtype=np.float64)
+    p = p / max(p.sum(), 1e-12)
+    extra = p * replication_budget
+    base = np.floor(extra).astype(np.int64)
+    rem = replication_budget - int(base.sum())
+    if rem > 0:
+        top = np.argsort(-(extra - base))[:rem]
+        base[top] += 1
+    return np.minimum(1 + base, num_devices)

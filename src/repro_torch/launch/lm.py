@@ -18,13 +18,16 @@ into a decode cache of ``prompt-len + new-tokens`` positions; take the
 greedy argmax as the next token; run ``new-tokens`` ``lm_decode_step``\\ s,
 each feeding the last argmax. Prints one JSON report: prefill ms, decode
 ms per token, the generated ids, ``flash_attention`` launches and peak
-device memory.
+device memory; for an MoE arch also the active parameters and, per
+request, the prefill's router stats (:func:`moe_prefill_report`).
 
 Defaults: ``prefill_32k``'s sequence with its batch cut 32 → 1 (32
 sequences' bf16 cache alone is 154.6 GB), decoding on that ~32k cache,
 ``decode_32k``'s length with its batch cut 128 → 1. Runs on ``--device
 cuda`` (default; raises without a card) or ``--device cpu`` — never the
-full model on a CPU. The MoE architectures exit naming ROADMAP A11.
+full model on a CPU. An arch whose bf16 weights alone exceed one 80 GB
+card (phi3.5-moe-42b: 83.75 GB) exits with status 2 unless ``--smoke``:
+it needs its experts sharded over four cards (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -36,14 +39,16 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import LM_ARCHS, LM_NOT_PORTED
+from repro_torch.configs import LM_ARCHS
 from repro_torch.configs.lm_common import smoke_config
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.models.transformer import (init_decode_cache,
+from repro_torch.models.transformer import (LM, init_decode_cache,
+                                            lm_active_param_count,
                                             lm_decode_step, lm_init,
-                                            lm_prefill)
+                                            lm_param_count, lm_prefill)
 
 WEIGHT_DTYPE = torch.bfloat16  # serving weights, as the reference's cells
+CARD_BYTES = 80e9              # one H100's device memory
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -58,11 +63,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--smoke", action="store_true")
     args = p.parse_args(argv)
-    if args.arch in LM_NOT_PORTED:
-        p.exit(2, f"repro_torch.launch.lm: --arch {args.arch} needs the MoE "
-                  "FFN, not ported yet (ROADMAP A11)\n")
     if args.arch not in LM_ARCHS:
         p.exit(2, f"repro_torch.launch.lm: unknown --arch {args.arch}\n")
+    n = lm_param_count(LM_ARCHS[args.arch])
+    weight_bytes = n * WEIGHT_DTYPE.itemsize
+    if not args.smoke and weight_bytes > CARD_BYTES:
+        p.exit(2, f"repro_torch.launch.lm: --arch {args.arch} has {n:,} "
+                  f"parameters, {weight_bytes / 1e9:.2f} GB of bf16 weights "
+                  f"against one {CARD_BYTES / 1e9:.0f} GB card: serving it "
+                  "needs its experts sharded over four cards (ROADMAP A13, "
+                  "four-card expert-parallel serving)\n")
     return args
 
 
@@ -70,6 +80,27 @@ def _sync(dev: torch.device) -> float:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return time.perf_counter()
+
+
+def moe_prefill_report(model: LM, tokens: int) -> dict:
+    """The router stats each MoE layer kept from a prefill of ``tokens``
+    tokens: ``capacity``, ``assignments`` (``T·k`` a layer),
+    ``dropped_by_layer`` and their sum ``dropped`` with its share of
+    ``T·k·L``, ``max_load_share_by_layer`` (the largest expert load over
+    ``capacity``) and ``expert_load_by_layer``."""
+    m = model.cfg.moe
+    stats = [blk.moe.last_stats for blk in model.layers]
+    load = torch.stack([s["expert_load"] for s in stats]).cpu()
+    dropped = torch.stack([s["dropped"] for s in stats]).cpu()
+    cap = stats[0]["capacity"]
+    assignments = tokens * m.top_k
+    return {"capacity": cap, "assignments": assignments,
+            "dropped": int(dropped.sum()),
+            "dropped_share": float(dropped.sum()) / (assignments
+                                                     * len(stats)),
+            "dropped_by_layer": dropped.tolist(),
+            "max_load_share_by_layer": (load.max(1).values / cap).tolist(),
+            "expert_load_by_layer": load.long().tolist()}
 
 
 def serve(args: argparse.Namespace) -> dict:
@@ -93,6 +124,8 @@ def serve(args: argparse.Namespace) -> dict:
         t0 = _sync(dev)
         logits, cache = lm_prefill(model, tokens, cfg)
         t1 = _sync(dev)
+        moe = (moe_prefill_report(model, args.batch * args.prompt_len)
+               if cfg.moe is not None else None)
         dcache = init_decode_cache(cfg, args.batch, total, device=dev)
         for key in ("k", "v"):
             dcache[key][:, :, :args.prompt_len] = cache[key]
@@ -114,9 +147,12 @@ def serve(args: argparse.Namespace) -> dict:
             "decode_ms_per_token": ((t3 - t2) * 1e3 / args.new_tokens
                                     if args.new_tokens else None),
             "generated": torch.stack(ids, 1).tolist()})
+        if moe is not None:
+            requests[-1]["moe_prefill"] = moe
     report = {
         "arch": args.arch, "smoke": args.smoke, "device": str(dev),
-        "params": n_params, "batch": args.batch,
+        "params": n_params, "active_params": lm_active_param_count(cfg),
+        "batch": args.batch,
         "prompt_len": args.prompt_len, "new_tokens": args.new_tokens,
         "requests": requests, "logits_finite": finite,
         "flash_launches": fa.LAUNCHES.value - launches0,

@@ -1,13 +1,17 @@
 """Decoder-only LM serving on PyTorch: GQA + RoPE (+ optional QKV bias /
-qk-norm), SwiGLU FFN, RMSNorm — the dense branch of
-``src/repro/models/transformer.py``, prefill then decode.
+qk-norm), SwiGLU or MoE FFN, RMSNorm — ``src/repro/models/transformer.py``,
+prefill then decode.
 
-Covers the dense LM configurations of the reference:
+Covers the LM configurations of the reference:
   qwen1.5-4b / codeqwen1.5-7b  — QKV bias, MHA-style GQA (kv == heads)
   qwen3-4b                     — qk-norm, GQA kv=8, head_dim 128 (H·dh ≠ d)
-The MoE FFN (``models/moe.py``; deepseek-moe-16b, phi3.5-moe-42b) is not
-ported: a config with ``moe`` set raises (ROADMAP A11). Training
-(``lm_forward``/``lm_loss``) waits for a backward of the attention kernel.
+  deepseek-moe-16b             — MoE (64 experts top-6 + 2 shared)
+  phi3.5-moe-42b               — MoE (16 experts top-2), GQA kv=8
+With ``cfg.moe`` set, each layer's FFN is a :class:`~repro_torch.models.
+moe.MoE` over the layer's ``B·S`` tokens, and each call's router stats
+stay readable as that module's ``last_stats``. Training
+(``lm_forward``/``lm_loss``) waits for a backward of the attention kernel
+(ROADMAP A11).
 
 Layout is the reference's: weights are ``(d_in, d_out)`` and applied as
 ``x @ w``, cast to the activation dtype; the cache is ``(L, B, S, KV,
@@ -21,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -33,6 +37,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.attention import (apply_rope, decode_attention,
                                           rope_angles)
 from repro_torch.models.common import RMSNorm, rms_norm
+from repro_torch.models.moe import MoE, MoEConfig, init_moe_, load_moe_
 
 CACHE_DTYPE = torch.bfloat16  # the reference stores the KV cache in bf16
 
@@ -41,7 +46,7 @@ CACHE_DTYPE = torch.bfloat16  # the reference stores the KV cache in bf16
 class LMConfig:
     """The reference's ``LMConfig``. Its ``q_chunk``/``kv_chunk`` tile
     ``blockwise_attention``; the port's kernel has fixed tiles, so they are
-    not carried. ``moe`` is kept so that an MoE config is refused."""
+    not carried."""
     vocab: int
     d_model: int
     n_layers: int
@@ -51,7 +56,7 @@ class LMConfig:
     d_ff: int
     qkv_bias: bool = False
     qk_norm: bool = False
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
     rope_theta: float = 1e6
     dtype: str = "float32"           # activation/compute dtype
 
@@ -60,20 +65,14 @@ class LMConfig:
         return getattr(torch, self.dtype)
 
 
-def _require_dense(cfg: LMConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            "the MoE FFN (models/moe.py) is not ported yet (ROADMAP A11); "
-            "only dense LM configs run")
-
-
 def _param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
 class LMBlock(nn.Module):
     """One decoder layer: ``ln1``, ``wq/wk/wv/wo`` (+ ``bq/bk/bv`` with QKV
-    bias, ``q_norm/k_norm`` with qk-norm), ``ln2``, SwiGLU ``w1/w3/w2``."""
+    bias, ``q_norm/k_norm`` with qk-norm), ``ln2``, and SwiGLU ``w1/w3/w2``
+    or, with ``cfg.moe``, a :class:`MoE` ``moe``."""
 
     def __init__(self, cfg: LMConfig, *, dtype: torch.dtype, device=None):
         super().__init__()
@@ -92,9 +91,12 @@ class LMBlock(nn.Module):
             self.q_norm = RMSNorm(dh, dtype=dtype, device=device)
             self.k_norm = RMSNorm(dh, dtype=dtype, device=device)
         self.ln2 = RMSNorm(d, dtype=dtype, device=device)
-        self.w1 = _param((d, cfg.d_ff), dtype, device)
-        self.w3 = _param((d, cfg.d_ff), dtype, device)
-        self.w2 = _param((cfg.d_ff, d), dtype, device)
+        if cfg.moe is None:
+            self.w1 = _param((d, cfg.d_ff), dtype, device)
+            self.w3 = _param((d, cfg.d_ff), dtype, device)
+            self.w2 = _param((cfg.d_ff, d), dtype, device)
+        else:
+            self.moe = MoE(d, cfg.moe, dtype=dtype, device=device)
 
     def qkv(self, h: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -124,8 +126,13 @@ class LMBlock(nn.Module):
         return h + o.reshape(b, s, -1) @ self.wo.to(o.dtype)
 
     def ffn(self, h: torch.Tensor) -> torch.Tensor:
-        """The reference's ``_ffn``, dense branch, with its residual add."""
+        """The reference's ``_ffn`` with its residual add: the MoE over the
+        ``(B·S, d)`` tokens (stats kept in ``moe.last_stats``), or the
+        dense SwiGLU."""
         x = self.ln2(h)
+        if self.cfg.moe is not None:
+            b, s, d = x.shape
+            return h + self.moe(x.reshape(b * s, d)).reshape(b, s, d)
         g = F.silu(x @ self.w1.to(x.dtype))
         u = x @ self.w3.to(x.dtype)
         return h + (g * u) @ self.w2.to(x.dtype)
@@ -139,7 +146,6 @@ class LM(nn.Module):
     def __init__(self, cfg: LMConfig, *, dtype: torch.dtype = torch.float32,
                  device=None):
         super().__init__()
-        _require_dense(cfg)
         self.cfg = cfg
         self.embed = _param((cfg.vocab, cfg.d_model), dtype, device)
         self.unembed = _param((cfg.d_model, cfg.vocab), dtype, device)
@@ -153,10 +159,12 @@ class LM(nn.Module):
 def lm_init(generator: torch.Generator, cfg: LMConfig,
             dtype: torch.dtype = torch.float32) -> LM:
     """An :class:`LM` on ``generator``'s device with the reference's
-    distributions (``lm_init``, dense branch): ``embed ~ N(0, 0.02²)``,
-    ``unembed``, ``wq/wk/wv/w1/w3 ~ N(0, 1/d)``, ``wo ~ N(0, 1/(H·dh))``,
-    ``w2 ~ N(0, 1/d_ff)``, unit norm gains, zero biases. Each weight is
-    drawn in ``dtype`` and then scaled, as the reference does."""
+    distributions (``lm_init``): ``embed ~ N(0, 0.02²)``, ``unembed``,
+    ``wq/wk/wv/w1/w3 ~ N(0, 1/d)``, ``wo ~ N(0, 1/(H·dh))``, ``w2 ~ N(0,
+    1/d_ff)``, unit norm gains, zero biases; with ``cfg.moe`` each layer
+    draws its own experts (:func:`~repro_torch.models.moe.init_moe_`; the
+    router in fp32). Each weight is drawn in its dtype and then scaled, as
+    the reference does."""
     model = LM(cfg, dtype=dtype, device=generator.device)
     d, h, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
 
@@ -166,12 +174,16 @@ def lm_init(generator: torch.Generator, cfg: LMConfig,
     normal(model.embed, 0.02)
     normal(model.unembed, 1.0 / math.sqrt(d))
     scales = {"wq": 1.0 / math.sqrt(d), "wk": 1.0 / math.sqrt(d),
-              "wv": 1.0 / math.sqrt(d), "wo": 1.0 / math.sqrt(h * dh),
-              "w1": 1.0 / math.sqrt(d), "w3": 1.0 / math.sqrt(d),
-              "w2": 1.0 / math.sqrt(cfg.d_ff)}
+              "wv": 1.0 / math.sqrt(d), "wo": 1.0 / math.sqrt(h * dh)}
+    if cfg.moe is None:
+        scales.update(w1=1.0 / math.sqrt(d), w3=1.0 / math.sqrt(d),
+                      w2=1.0 / math.sqrt(cfg.d_ff))
     for name, scale in scales.items():  # one weight kind at a time
         for blk in model.layers:
             normal(getattr(blk, name), scale)
+    if cfg.moe is not None:
+        for blk in model.layers:
+            init_moe_(blk.moe, generator)
     for name, p in model.named_parameters():
         if name.endswith(".weight"):    # RMSNorm gains
             p.fill_(1.0)
@@ -186,8 +198,9 @@ def lm_from_numpy(params: dict, cfg: LMConfig, *,
                   device: str | torch.device = "cuda") -> LM:
     """The reference's ``lm_init`` dict (``embed``, ``unembed``,
     ``final_ln`` and ``layers`` of stacked ``(L, …)`` arrays, weights
-    ``(d_in, d_out)``) → :class:`LM` in ``dtype`` on ``device`` (the card
-    unless the caller asks for the CPU)."""
+    ``(d_in, d_out)``; with ``cfg.moe``, ``layers["moe"]``'s stacked expert
+    arrays, ``shared`` included) → :class:`LM` in ``dtype`` (MoE routers in
+    fp32) on ``device`` (the card unless the caller asks for the CPU)."""
     model = LM(cfg, dtype=dtype, device=resolve_device(device))
 
     def put(p: torch.Tensor, arr) -> None:
@@ -205,6 +218,13 @@ def lm_from_numpy(params: dict, cfg: LMConfig, *,
                      "bv"):
             if hasattr(blk, name):
                 put(getattr(blk, name), lay[name][i])
+        if cfg.moe is not None:
+            layer_moe = {k: v[i] for k, v in lay["moe"].items()
+                         if k != "shared"}
+            if cfg.moe.n_shared:
+                layer_moe["shared"] = {k: v[i] for k, v in
+                                       lay["moe"]["shared"].items()}
+            load_moe_(blk.moe, layer_moe)
     return model
 
 
@@ -228,7 +248,6 @@ def lm_prefill(model: LM, tokens: torch.Tensor, cfg: LMConfig
     last-position logits ``(B, V)`` in fp32 and the KV cache
     ``{"k", "v"}``, each ``(L, B, S, KV, dh)`` in bf16 (k after qk-norm
     and RoPE). Each layer's attention is one ``flash_attention`` call."""
-    _require_dense(cfg)
     b, s = tokens.shape
     h = model.embed[tokens].to(cfg.adtype)
     cos, sin = _rope(torch.arange(s, device=tokens.device), cfg)
@@ -253,7 +272,6 @@ def lm_decode_step(model: LM, token: torch.Tensor, cache: dict,
     dh)``; ``cache_len`` is the new token's position + 1. The new k/v are
     written at ``cache_len - 1`` in place (cast to the cache's dtype) and
     the same dict is returned."""
-    _require_dense(cfg)
     b = token.shape[0]
     h = model.embed[token].to(cfg.adtype)
     cos, sin = _rope(torch.tensor([cache_len - 1], device=token.device), cfg)
@@ -280,16 +298,35 @@ def init_decode_cache(cfg: LMConfig, batch: int, max_len: int,
 
 def lm_param_count(cfg: LMConfig) -> int:
     """The reference's formula: embeddings, final norm, and per layer the
-    attention and FFN weights and two norm gains (qk-norm gains and QKV
-    biases are not counted)."""
-    _require_dense(cfg)
-    d, h, kv, dh, L = (cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim,
-                       cfg.n_layers)
-    attn = d * h * dh + 2 * d * kv * dh + h * dh * d
-    ffn = 3 * d * cfg.d_ff
-    return 2 * cfg.vocab * d + d + L * (attn + ffn + 2 * d)
+    attention and FFN weights (with MoE: every expert, the router and the
+    shared experts) and two norm gains (qk-norm gains and QKV biases are
+    not counted)."""
+    m = cfg.moe
+    if m is None:
+        ffn = 3 * cfg.d_model * cfg.d_ff
+    else:
+        ffn = _moe_ffn_params(cfg, m.num_experts)
+    return _count(cfg, ffn)
 
 
 def lm_active_param_count(cfg: LMConfig) -> int:
-    """Parameters a token touches: all of them for a dense config."""
-    return lm_param_count(cfg)
+    """Parameters a token touches: all of them for a dense config; with
+    MoE, its top-k experts, the whole router and the shared experts."""
+    if cfg.moe is None:
+        return lm_param_count(cfg)
+    return _count(cfg, _moe_ffn_params(cfg, cfg.moe.top_k))
+
+
+def _moe_ffn_params(cfg: LMConfig, experts: int) -> int:
+    d, m = cfg.d_model, cfg.moe
+    ffn = experts * 3 * d * m.d_ff + d * m.num_experts
+    if m.n_shared:
+        ffn += 3 * d * m.d_ff_shared
+    return ffn
+
+
+def _count(cfg: LMConfig, ffn: int) -> int:
+    d, h, kv, dh, L = (cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim,
+                       cfg.n_layers)
+    attn = d * h * dh + 2 * d * kv * dh + h * dh * d
+    return 2 * cfg.vocab * d + d + L * (attn + ffn + 2 * d)

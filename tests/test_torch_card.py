@@ -443,6 +443,42 @@ def test_lm_prefill_card_matches_cpu(card):
     assert cache["k"].shape == want_cache["k"].shape
 
 
+@pytest.mark.cuda
+def test_moe_card_matches_cpu(card):
+    """The smoke-size deepseek-moe-16b prefill and two decode steps on the
+    card against the same weights on the CPU: every layer's router stats
+    of the prefill equal (the same experts kept), logits within 1e-4."""
+    from repro_torch.configs import deepseek_moe_16b, lm_common
+    from repro_torch.models import transformer as tf
+    cfg = lm_common.smoke_config(deepseek_moe_16b.CONFIG)
+    cpu = tf.lm_init(torch.Generator().manual_seed(0), cfg)
+    dev = tf.LM(cfg, device=card)
+    dev.load_state_dict(cpu.state_dict())
+    tokens = torch.randint(0, cfg.vocab, (2, 150),
+                           generator=torch.Generator().manual_seed(1))
+    before = fa_pkg.LAUNCHES.value
+    got, _ = tf.lm_prefill(dev, tokens.to(card), cfg)
+    want, want_cache = tf.lm_prefill(cpu, tokens, cfg)
+    assert fa_pkg.LAUNCHES.value == before + cfg.n_layers
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    for a, b in zip(dev.layers, cpu.layers):
+        sa, sb = a.moe.last_stats, b.moe.last_stats
+        assert torch.equal(sa["expert_load"].cpu(), sb["expert_load"])
+        assert int(sa["dropped"]) == int(sb["dropped"])
+    dc = tf.init_decode_cache(cfg, 2, 152, dtype=torch.float32, device=card)
+    cc = tf.init_decode_cache(cfg, 2, 152, dtype=torch.float32,
+                              device="cpu")
+    for key in ("k", "v"):  # both decode on the CPU prefill's cache
+        dc[key][:, :, :150] = want_cache[key].to(card)
+        cc[key][:, :, :150] = want_cache[key]
+    tok = want.argmax(-1)[:, None]
+    for pos in (151, 152):
+        got, dc = tf.lm_decode_step(dev, tok.to(card), dc, pos, cfg)
+        want, cc = tf.lm_decode_step(cpu, tok, cc, pos, cfg)
+        assert float((got.cpu() - want).abs().max()) <= 1e-4
+        tok = want.argmax(-1)[:, None]
+
+
 def _cold_path_stores(card, n=4000, d=64):
     """A card store and a CPU store over the same features and plan."""
     from repro_torch.core import (TieredFeatureStore, TopologySpec,

@@ -48,6 +48,8 @@ def test_port_imports_with_jax_and_reference_blocked():
             "import repro_torch.kernels.flash_attention\n"
             "import repro_torch.models.transformer, repro_torch.launch.lm\n"
             "import repro_torch.configs.qwen3_4b, repro_torch.bench.profile_lm\n"
+            "import repro_torch.models.moe, repro_torch.configs.phi35_moe_42b\n"
+            "import repro_torch.configs.deepseek_moe_16b\n"
             "import repro_torch.core.gpu_cache, repro_torch.core.prefetch\n"
             "import repro_torch.serving.adaptive, repro_torch.serving.gateway\n"
             "import repro_torch.testing, repro_torch.bench.profile_serve\n"
