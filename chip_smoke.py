@@ -113,7 +113,27 @@ Phases (any failed check exits non-zero before the result line):
              5 forward, 4 backward), finite losses, and its peak device
              memory; at the launcher's default size the card's first-step
              loss is held against the port on the CPU, and each
-             parameter's gradient against an fp64 witness on the CPU.
+             parameter's gradient (and all of them in norm) against an
+             fp64 witness on the CPU.
+6b. geometric — SchNet, MeshGraphNet and EquiformerV2 training: each
+             through ``repro_torch.launch.train --arch A --steps
+             GEO_STEPS`` at the launcher's defaults with the five kernels'
+             counters zeroed just before and read just after (this path
+             must launch none), finite losses, wall time and peak memory;
+             EquiformerV2 at its published widths (``_init``, EQ_PARAMS
+             parameters) trained ``GEO_STEPS`` steps by ``run_training``
+             at the launcher's graph and at the ``molecule`` shape (step
+             ms, peak memory, losses); ``repro_torch.launch.
+             train_gnn_100m --params-scale full`` (MGN_FULL_PARAMS
+             parameters) for ``MGN_FULL_STEPS`` steps; card vs CPU for
+             each arch at its published widths on ``GEO_CPU_GRAPH`` (loss
+             within ``CPU_TOL``; every gradient against an fp64 CPU
+             witness within ``GRAD_TOL`` of its own size, MeshGraphNet
+             ``MGN_GRAD_TOL``, EquiformerV2's logit biases over their
+             weight's size; all of it within ``GRAD_TOL`` in norm); full-
+             width EquiformerV2's logits under ``rotation_matrix_zyz(
+             EQ_ROTATION)`` within ``EQ_EQUIV_TOL`` and with 8 edge chunks
+             within ``EQ_CHUNK_TOL``. One ``{"geometric": ...}`` line.
 7. lm      — qwen3-4b serving at its published widths and 36 layers.
              The earlier stacks are released first. ``repro_torch.launch.
              lm`` runs at its defaults (one request: a 32,768-token prefill,
@@ -217,6 +237,27 @@ MOE_KEY = "deepseek_moe_16b"   # its flash_attention numbers in the entry
 # output's largest magnitude (both sides round the expert products, the
 # SiLU and each of the k combine adds; tests/test_torch_moe.py's bound)
 MOE_BF16_ULPS = 4
+GEO_ARCHS = ("schnet", "meshgraphnet", "equiformer-v2")  # phase 6b
+GEO_STEPS = 3
+GEO_CPU_GRAPH = dict(nodes=512, edges=2048, d_feat=64, classes=16)
+EQ_PARAMS = 40_054_724     # equiformer_v2._init at d_feat 64, 16 classes
+MGN_FULL_PARAMS = 37_609_475  # train_gnn_100m --params-scale full
+MGN_FULL_STEPS = 4
+# MeshGraphNet's gradients at GEO_CPU_GRAPH, per parameter over its own
+# size: its 30 ReLU MLPs see pre-activations within fp32 rounding of 0,
+# and a ReLU that fp32 rounding flips moves its hidden unit's row of the
+# gradient by one edge's term (the CPU port in fp32: 5.5e-4; the card's
+# first run: 1.17e-3 on blocks.11.edge.mlp.layers.0.weight). The whole
+# gradient is still held to GRAD_TOL in norm.
+MGN_GRAD_TOL = 1e-2
+EQ_ROTATION = (0.4, 1.0, -0.3)  # zyz angles of the equivariance check
+# EquiformerV2 at full width (l_max 6, 12 layers) on GEO_CPU_GRAPH without
+# self-loops, max |logit diff|: rotated positions against unrotated, and 8
+# edge chunks against 1. The CPU port gives 5.7e-6 and 4.8e-6 on logits
+# of magnitude 9.4; the card's atomic sums add in other orders, so 10×
+# that (set before the card ran it).
+EQ_EQUIV_TOL = 5e-5
+EQ_CHUNK_TOL = 5e-5
 SHARDED_WORLD = 4          # logical shards of phase 4c on one card
 SHARDED_HOT_FRAC = 0.25    # the launcher's --hot-frac
 
@@ -1784,7 +1825,6 @@ def train_phase(entry: dict) -> None:
 
     import torch
     from repro_torch.configs import gin_tu
-    from repro_torch.configs.gnn_common import make_concrete_batch
     from repro_torch.kernels import segment_spmm as sp
     from repro_torch.launch import train as train_launcher
 
@@ -1817,44 +1857,285 @@ def train_phase(entry: dict) -> None:
     defaults = train_launcher.parse_args([])
     info = dict(nodes=defaults.nodes, edges=defaults.edges,
                 d_feat=defaults.d_feat, classes=defaults.classes, graphs=None)
+    card_vs_cpu("gin-tu", gin_tu, info, tol_of=lambda k: (
+        EPS_GRAD_TOL if k.endswith(".eps") else GRAD_TOL))
+
+
+def card_vs_cpu(name: str, mod, info: dict, *, tol_of=lambda k: GRAD_TOL,
+                size_of=lambda k: k) -> dict:
+    """``mod._init`` (seed 0) and ``mod._loss`` on ``make_concrete_batch(
+    info, seed=0)``: the card's loss against the CPU port's within
+    ``CPU_TOL``, and every parameter's gradient on the card and on the CPU
+    (fp32) against an fp64 witness (the CPU port in fp64; the loss head
+    casts to fp32 in every run, as the reference does): max |diff| over
+    the largest fp64 gradient entry of parameter ``size_of(name)`` (its
+    own unless said otherwise) within ``tol_of(name)``, where that is 0
+    exactly 0; and all parameters' gradients together within ``GRAD_TOL``
+    of the witness's norm."""
+    import math
+
+    import torch
+    from repro_torch.configs.gnn_common import make_concrete_batch
     out = {}
     for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
                        ("cpu", torch.float64)):
-        model = gin_tu._init(torch.Generator().manual_seed(0),
-                             info["d_feat"], info["classes"], "custom",
-                             device=dev).to(dtype)
+        model = mod._init(torch.Generator().manual_seed(0), info["d_feat"],
+                          info["classes"], "custom", device=dev).to(dtype)
         batch = {k: v.to(dtype) if v.is_floating_point() else v
                  for k, v in make_concrete_batch(info, seed=0,
                                                  device=dev).items()}
         params = dict(model.named_parameters())
-        loss = gin_tu._loss(model, batch, info, "custom")
+        loss = mod._loss(model, batch, info, "custom")
         grads = torch.autograd.grad(loss, list(params.values()))
         out[dev if dtype == torch.float32 else "fp64"] = (
             float(loss.detach()),
             {k: g.cpu().double() for k, g in zip(params, grads)})
+        del model, batch, params, loss, grads
     loss_diff = abs(out["cuda"][0] - out["cpu"][0])
-    check(loss_diff <= CPU_TOL, f"train card vs CPU loss |diff| "
+    check(loss_diff <= CPU_TOL, f"{name} card vs CPU loss |diff| "
           f"{loss_diff:.3g} > {CPU_TOL}")
-    worst = {}
+    witness = out["fp64"][1]
+    worst, norm_rel = {}, {}
     for side in ("cuda", "cpu"):
-        for k, g64 in out["fp64"][1].items():
+        norm_rel[side] = float(
+            torch.sqrt(sum(((out[side][1][k] - g) ** 2).sum()
+                           for k, g in witness.items()))
+            / torch.sqrt(sum((g ** 2).sum() for g in witness.values())))
+        check(norm_rel[side] <= GRAD_TOL, f"{name} {side} gradient off its "
+              f"fp64 witness by {norm_rel[side]:.3g} in norm > {GRAD_TOL}")
+        for k, g64 in witness.items():
             g = out[side][1][k]
             check(bool(torch.isfinite(g).all()), f"non-finite {side} "
-                  f"gradient {k}")
-            rel = float((g - g64).abs().max()) / float(g64.abs().max())
-            tol = EPS_GRAD_TOL if k.endswith(".eps") else GRAD_TOL
-            check(rel <= tol, f"train {side} gradient of {k} off its fp64 "
-                  f"witness by {rel:.3g} of its own size > {tol}")
-            kind = "eps" if k.endswith(".eps") else "other"
-            if rel >= worst.get((side, kind), (0.0, ""))[0]:
-                worst[side, kind] = (rel, k)
-    log(f"train at the launcher default {info}: card loss "
-        f"{out['cuda'][0]:.7f} vs CPU {out['cpu'][0]:.7f} (|diff| "
-        f"{loss_diff:.3g}); gradients against the fp64 witness, each over "
-        f"its own size (worst, limit): " + "; ".join(
-            f"{side} {kind} {rel:.3g} ({k}, "
-            f"{EPS_GRAD_TOL if kind == 'eps' else GRAD_TOL})"
-            for (side, kind), (rel, k) in sorted(worst.items())))
+                  f"{name} gradient {k}")
+            diff = float((g - g64).abs().max())
+            size = float(witness[size_of(k)].abs().max())
+            # a gradient that is zero by construction (EquiformerV2's first
+            # layer sees no l > 0 input; its last layer's l > 0 outputs
+            # reach no output) must be zero on every side
+            rel = diff / size if size else (0.0 if diff == 0 else math.inf)
+            check(rel <= tol_of(k), f"{name} {side} gradient of {k} off "
+                  f"its fp64 witness by {rel:.3g} of the size of "
+                  f"{size_of(k)}'s > {tol_of(k)}")
+            if rel >= worst.get(side, (0.0, ""))[0]:
+                worst[side] = (rel, k)
+    log(f"{name} card vs CPU at {info}: card loss {out['cuda'][0]:.7f} vs "
+        f"CPU {out['cpu'][0]:.7f} (|diff| {loss_diff:.3g}, limit {CPU_TOL}); "
+        f"gradients against the fp64 witness (worst over the parameter's "
+        f"size): " + "; ".join(f"{side} {rel:.3g} ({k}, limit {tol_of(k)})"
+                               for side, (rel, k) in sorted(worst.items()))
+        + "; in norm: " + ", ".join(f"{side} {v:.3g}" for side, v in
+                                    sorted(norm_rel.items()))
+        + f" (limit {GRAD_TOL})")
+    return {"loss_card": out["cuda"][0], "loss_cpu": out["cpu"][0],
+            "loss_diff": loss_diff,
+            "grad_worst": {side: {"rel": rel, "param": k}
+                           for side, (rel, k) in worst.items()},
+            "grad_norm_rel": norm_rel}
+
+
+# ---------------------------------------------------------------------------
+# phase 6b
+# ---------------------------------------------------------------------------
+def kernel_launches() -> dict:
+    """The five kernels' launch counters."""
+    from repro_torch.kernels import (embedding_bag, flash_attention,
+                                     gather_aggregate, segment_spmm,
+                                     tiered_gather)
+    return {m.__name__.rsplit(".", 1)[1]: m.LAUNCHES
+            for m in (tiered_gather, gather_aggregate, embedding_bag,
+                      segment_spmm, flash_attention)}
+
+
+def train_full_equiformer(info: dict, shape: str) -> dict:
+    """``equiformer_v2._init`` (published widths), ``_loss`` and
+    ``run_training`` for ``GEO_STEPS`` steps on the card: losses, step ms
+    (each step's batch draw to the next one's, after a synchronize) and
+    peak memory."""
+    import math
+
+    import torch
+    from repro_torch.configs import equiformer_v2
+    from repro_torch.configs.gnn_common import make_concrete_batch
+    from repro_torch.models.common import count_params
+    from repro_torch.training import AdamW, run_training
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n_out = info["classes"] if info["classes"] is not None else 1
+    model = equiformer_v2._init(torch.Generator().manual_seed(0),
+                                info["d_feat"], n_out, shape, device="cuda")
+    starts, losses = [], []
+
+    def batch_fn(step):
+        torch.cuda.synchronize()
+        starts.append(time.perf_counter())
+        return make_concrete_batch(info, seed=step, device="cuda")
+
+    def loss_fn(m, batch):
+        loss = equiformer_v2._loss(m, batch, info, shape)
+        losses.append(loss.detach())
+        return loss
+
+    run_training(loss_fn=loss_fn, model=model,
+                 opt=AdamW(lr=1e-3, weight_decay=0.0), batch_fn=batch_fn,
+                 steps=GEO_STEPS, log_every=1000)
+    torch.cuda.synchronize()
+    starts.append(time.perf_counter())
+    losses = [float(x) for x in losses]
+    check(len(losses) == GEO_STEPS and all(math.isfinite(x) for x in losses),
+          f"equiformer-v2 at full width, {shape}: losses {losses} not "
+          f"{GEO_STEPS} finite")
+    out = {"shape": shape, "nodes": info["nodes"], "edges": info["edges"],
+           "params": count_params(model), "losses": losses,
+           "step_ms": [(b - a) * 1e3 for a, b in zip(starts, starts[1:])],
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    log(f"equiformer-v2 full width ({out['params']:,} params) at {shape} "
+        f"({info['nodes']} nodes, {info['edges']} edges): losses {losses}, "
+        f"step ms {[round(x, 1) for x in out['step_ms']]}, peak "
+        f"{out['peak_bytes'] / 2**30:.2f} GiB")
+    return out
+
+
+def equiformer_symmetry() -> dict:
+    """Full-width EquiformerV2 on the card at ``GEO_CPU_GRAPH`` (self-loops
+    made padding: a zero edge vector has no direction to rotate): node
+    logits under a rotation of the positions, and with 8 edge chunks."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import equiformer_v2
+    from repro_torch.configs.gnn_common import make_concrete_batch
+    from repro_torch.models.equiformer_v2 import equiformer_forward
+    from repro_torch.models.so3 import rotation_matrix_zyz
+
+    info = dict(GEO_CPU_GRAPH, graphs=None)
+    model = equiformer_v2._init(torch.Generator().manual_seed(0),
+                                info["d_feat"], info["classes"], "custom",
+                                device="cuda")
+    b = make_concrete_batch(info, seed=0, device="cuda")
+    src = torch.where(b["src"] == b["dst"], -1, b["src"])
+    rot = torch.as_tensor(rotation_matrix_zyz(*EQ_ROTATION).astype(
+        np.float32), device="cuda")
+    kw = dict(num_nodes=info["nodes"], node_feat=b["node_feat"])
+    with torch.no_grad():
+        base = equiformer_forward(model, b["species"], b["positions"], src,
+                                  b["dst"], **kw)
+        turned = equiformer_forward(model, b["species"],
+                                    b["positions"] @ rot.T, src, b["dst"],
+                                    **kw)
+        chunked = equiformer_forward(model, b["species"], b["positions"],
+                                     src, b["dst"], edge_chunks=8, **kw)
+    out = {"logit_max_abs": float(base.abs().max()),
+           "equivariance_max_abs": float((turned - base).abs().max()),
+           "chunking_max_abs": float((chunked - base).abs().max())}
+    check(bool(torch.isfinite(base).all()), "equiformer-v2 logits not finite")
+    check(out["equivariance_max_abs"] <= EQ_EQUIV_TOL,
+          f"equiformer-v2 logits move by {out['equivariance_max_abs']:.3g} "
+          f"under a rotation > {EQ_EQUIV_TOL}")
+    check(out["chunking_max_abs"] <= EQ_CHUNK_TOL,
+          f"equiformer-v2 8 edge chunks vs 1: {out['chunking_max_abs']:.3g} "
+          f"> {EQ_CHUNK_TOL}")
+    log(f"equiformer-v2 full width on the card: logits (max |x| "
+        f"{out['logit_max_abs']:.3g}) move by "
+        f"{out['equivariance_max_abs']:.3g} under rotation_matrix_zyz"
+        f"{EQ_ROTATION} (limit {EQ_EQUIV_TOL}); 8 edge chunks vs 1: "
+        f"{out['chunking_max_abs']:.3g} (limit {EQ_CHUNK_TOL})")
+    return out
+
+
+def geometric_phase() -> None:
+    """SchNet, MeshGraphNet and EquiformerV2 training on the card: each
+    through the training launcher at its defaults (no kernel of the repo
+    may launch: the counters are zeroed before and read after); full-width
+    EquiformerV2 at the launcher's graph and the ``molecule`` shape; the
+    MeshGraphNet example at ``--params-scale full``; card vs CPU for each
+    at full width on ``GEO_CPU_GRAPH``; EquiformerV2's equivariance and
+    edge chunking at l_max 6."""
+    import math
+    import shutil
+
+    import torch
+    from repro_torch.configs import equiformer_v2, meshgraphnet, schnet
+    from repro_torch.configs.gnn_common import SHAPES
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.launch import train_gnn_100m
+
+    result = {"launcher": {}}
+    counters = kernel_launches()
+    for arch in GEO_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.reset()
+        report = train_launcher.main(["--device", "cuda", "--arch", arch,
+                                      "--steps", str(GEO_STEPS)])
+        launched = {k: c.value for k, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        check(report["step"] == GEO_STEPS
+              and len(report["losses"]) == GEO_STEPS
+              and all(math.isfinite(x) for x in report["losses"]),
+              f"{arch} through the launcher: losses {report['losses']} "
+              f"not {GEO_STEPS} finite")
+        check(not any(launched.values()), f"{arch} training launched "
+              f"kernels of the repo: {launched}")
+        result["launcher"][arch] = {
+            "steps": report["step"], "losses": report["losses"],
+            "wall_s": report["wall_s"], "params": report["params"],
+            "peak_bytes": peak}
+        log(f"{arch} through the launcher on the card: {report['params']:,} "
+            f"params, losses {report['losses']}, {report['wall_s']:.2f} s, "
+            f"peak {peak / 2**30:.2f} GiB")
+
+    defaults = train_launcher.parse_args([])
+    default_info = dict(nodes=defaults.nodes, edges=defaults.edges,
+                        d_feat=defaults.d_feat, classes=defaults.classes,
+                        graphs=None)
+    full = {"custom": train_full_equiformer(default_info, "custom"),
+            "molecule": train_full_equiformer(SHAPES["molecule"],
+                                              "molecule")}
+    check(full["custom"]["params"] == EQ_PARAMS, f"equiformer-v2 _init has "
+          f"{full['custom']['params']:,} parameters, not {EQ_PARAMS:,}")
+    result["equiformer_full"] = full
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ckpt_dir = ROOT / "build" / "mgn_full_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        mgn = train_gnn_100m.main(["--device", "cuda", "--params-scale",
+                                   "full", "--steps", str(MGN_FULL_STEPS),
+                                   "--ckpt-dir", str(ckpt_dir)])
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    mgn["peak_bytes"] = torch.cuda.max_memory_allocated()
+    check(mgn["params"] == MGN_FULL_PARAMS and mgn["step"] == MGN_FULL_STEPS
+          and all(math.isfinite(x) for x in mgn["losses"]),
+          f"train_gnn_100m full: {mgn['params']:,} params, losses "
+          f"{mgn['losses']}")
+    result["mgn_full"] = {k: mgn[k] for k in ("params", "nodes", "edges",
+                                              "losses", "step_ms",
+                                              "wall_s", "peak_bytes")}
+    log(f"train_gnn_100m --params-scale full: {mgn['params']:,} params, "
+        f"{mgn['nodes']} nodes, {mgn['edges']} edges, losses "
+        f"{mgn['losses']}, step ms {[round(x, 1) for x in mgn['step_ms']]}, "
+        f"peak {mgn['peak_bytes'] / 2**30:.2f} GiB")
+
+    info = dict(GEO_CPU_GRAPH, graphs=None)
+    result["card_vs_cpu"] = {
+        "schnet": card_vs_cpu("schnet", schnet, info),
+        "meshgraphnet": card_vs_cpu("meshgraphnet", meshgraphnet, info,
+                                    tol_of=lambda k: MGN_GRAD_TOL),
+        # each layer's logit bias shifts a head's logits, which cancels in
+        # the softmax but for the tanh cap: its gradient is 1e-4–8e-4 of
+        # the logit weight's, so it is held over that weight's size
+        "equiformer-v2": card_vs_cpu(
+            "equiformer-v2", equiformer_v2, info, size_of=lambda k: (
+                k[:-len("bias")] + "weight"
+                if k.endswith("alpha.layers.1.bias") else k))}
+    result.update(equiformer_symmetry())
+    print(json.dumps({"geometric": result}), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2394,6 +2675,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     train_phase(entry)
     results.append(entry)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 6b. geometric training
+    t0 = time.perf_counter()
+    geometric_phase()
+    log(f"geometric phase in {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
 

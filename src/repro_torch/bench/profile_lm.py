@@ -64,7 +64,8 @@ STAGES = ("embed", "norms_rope", "qkv_o_gemm", "flash", "ffn", "router",
 class _Stages:
     """CUDA events around stages; elapsed ms summed per stage name."""
 
-    def __init__(self) -> None:
+    def __init__(self, names: tuple[str, ...] = STAGES) -> None:
+        self.names = names
         self.marks: list[tuple[str, torch.cuda.Event, torch.cuda.Event]] = []
         self._open: tuple[str, torch.cuda.Event] | None = None
 
@@ -80,10 +81,10 @@ class _Stages:
         self.marks.append((name, start, end))
 
     def totals(self) -> dict[str, float]:
-        """Summed ms of each stage that ran, in ``STAGES`` order."""
+        """Summed ms of each stage that ran, in ``names`` order."""
         torch.cuda.synchronize()
         ran = {name for name, _, _ in self.marks}
-        out = {name: 0.0 for name in STAGES if name in ran}
+        out = {name: 0.0 for name in self.names if name in ran}
         for name, start, end in self.marks:
             out[name] += start.elapsed_time(end)
         return out

@@ -13,6 +13,7 @@ tiered feature store (``repro_torch.launch.recsys_din``).
 """
 from __future__ import annotations
 
+from repro_torch.configs.base import Arch, register
 from repro_torch.models.din import DINConfig
 
 CONFIG = DINConfig(n_items=10_000_000, n_cates=10_000, embed_dim=18,
@@ -32,3 +33,8 @@ NOT_PORTED = {"train_batch": "needs din_loss and a backward (training)"}
 # candidates per din_forward call in retrieval scoring (the reference's
 # retrieval cell uses this chunk)
 RETRIEVAL_CHUNK = 31_250
+
+ARCH = register(Arch(
+    name="din", family="recsys",
+    description="Deep Interest Network: target attention over user history, "
+                "10M-row item table through the tiered store."))

@@ -7,8 +7,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.gnn_common import (classification_loss,
-                                            regression_loss)
+from repro_torch.configs.base import register
+from repro_torch.configs.gnn_common import (GNNAdapter, classification_loss,
+                                            make_gnn_arch, regression_loss)
 from repro_torch.models.gnn_basic import (GIN, gin_full_graph,
                                           gin_graph_readout, gin_init)
 
@@ -33,3 +34,8 @@ def _loss(model: GIN, batch: dict, info: dict, shape: str) -> torch.Tensor:
     logits = gin_full_graph(model, batch["node_feat"], batch["src"],
                             batch["dst"], num_nodes=info["nodes"])
     return classification_loss(logits, batch["labels"])
+
+
+ARCH = register(make_gnn_arch(GNNAdapter(
+    name="gin-tu", init=_init, loss=_loss,
+    description="GIN-ε, 5 layers, 64 hidden, sum aggregation.")))

@@ -1,7 +1,8 @@
-"""Shapes, the unified batch and the losses shared by the GNN
-architectures — ``src/repro/configs/gnn_common.py`` without its JAX-only
-cell, mesh and sharding machinery (``build_gnn_cell``, ``gnn_rules``,
-``CellSpec``; dry-run only).
+"""Shapes, the unified batch, the losses and the per-architecture adapter
+shared by the GNN architectures — ``src/repro/configs/gnn_common.py``
+without its JAX-only cell, mesh and sharding machinery
+(``build_gnn_cell``, ``gnn_rules``, ``gnn_smoke``, ``CellSpec``; dry-run
+only, ROADMAP A12).
 
 Shapes:
   full_graph_sm — full-batch train, N=2,708 / E=10,556 / d=1,433 (Cora)
@@ -15,11 +16,15 @@ labels(, mol_id)}``; every architecture consumes the subset it needs.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.configs.base import Arch
 
 SHAPES = {
     # padded from N=2,708 / E=10,556 to multiples of 32
@@ -92,3 +97,24 @@ def regression_loss(pred: torch.Tensor, labels: torch.Tensor
                     ) -> torch.Tensor:
     """Mean squared error of ``pred[..., 0]``."""
     return F.mse_loss(pred[..., 0].float(), labels)
+
+
+@dataclasses.dataclass(frozen=True)
+class GNNAdapter:
+    """Per-arch bridge: build the model for ``(d_feat, n_out)`` and compute
+    the per-shape loss from the unified batch.
+
+    ``init(generator, d_feat, n_out, shape, *, device)`` returns the
+    model; ``loss(model, batch, info, shape)`` a scalar. The reference's
+    ``loss_sharded`` (the halo-exchange path) is not ported (ROADMAP
+    A10b)."""
+
+    name: str
+    init: Callable
+    loss: Callable
+    description: str = ""
+
+
+def make_gnn_arch(adapter: GNNAdapter) -> Arch:
+    return Arch(name=adapter.name, family="gnn",
+                description=adapter.description, adapter=adapter)

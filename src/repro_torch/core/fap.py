@@ -2,8 +2,10 @@
 
     P_K = Σ_{k=0..K} w_k,   w_0 = p_0,   w_k = Tᵀ w_{k-1}
 
-computed with K transposed SpMV passes (``segment_sum``). ``truncated``
-damps each step by the fanout acceptance ratio ``min(deg, l_k)/deg``.
+computed with K transposed SpMV passes (``segment_sum_ordered``: each
+node's terms in edge order, so the card gives the CPU's bits).
+``truncated`` damps each step by the fanout acceptance ratio
+``min(deg, l_k)/deg``.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.psgs import _coo
-from repro_torch.graph.segment import segment_sum
+from repro_torch.graph.segment import segment_sum_ordered
 
 
 def compute_fap(graph, fanouts: Sequence[int], *,
@@ -34,6 +36,6 @@ def compute_fap(graph, fanouts: Sequence[int], *,
     total = w
     for l_k in fanouts:
         rate = deg.clamp_max(float(l_k)) * inv_deg if truncated else inv_deg
-        w = segment_sum((w * rate)[src], dst, n)
+        w = segment_sum_ordered((w * rate)[src], dst, n)
         total = total + w
     return total.cpu().numpy()

@@ -1,5 +1,6 @@
 """Probabilistic Sampled Sub-graph Size (PSGS) — paper §4.1, computed on
-the device with K sparse matrix–vector passes (``segment_sum``).
+the device with K sparse matrix–vector passes (``segment_sum_ordered``:
+each node's terms in edge order, so the card gives the CPU's bits).
 
 ``mode="paper"`` is the published formula (expected fan-in of one
 random-walk position per hop); ``mode="branching"`` (default) counts the
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.graph.segment import segment_sum
+from repro_torch.graph.segment import segment_sum_ordered
 
 
 def _coo(graph, dev: torch.device):
@@ -44,7 +45,7 @@ def compute_psgs(graph, fanouts: Sequence[int], *, mode: str = "branching",
 
     def mean_over_neighbors(v):
         # (T v)[i] = (1/deg_i) Σ_{j ∈ N⁺(i)} v[j]
-        return segment_sum(v[dst], src, n) * inv_deg
+        return segment_sum_ordered(v[dst], src, n) * inv_deg
 
     fanouts = [float(f) for f in fanouts]
     if mode == "paper":

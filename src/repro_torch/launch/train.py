@@ -1,21 +1,26 @@
-"""GNN training launcher on PyTorch: GIN-TU full-graph node classification.
+"""GNN training launcher on PyTorch: full-graph training of a GNN
+architecture on a synthetic graph.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --steps 100 \\
-        [--ckpt-dir DIR] [--nodes 4096 --edges 32768 --d-feat 64 \\
-         --classes 16] [--device cuda|cpu]
+    PYTHONPATH=src python -m repro_torch.launch.train [--arch gin-tu] \\
+        [--steps 100] [--ckpt-dir DIR] [--nodes 4096 --edges 32768 \\
+         --d-feat 64 --classes 16] [--device cuda|cpu]
 
 The reference launcher's CLI (``src/repro/launch/train.py``): a synthetic
 graph per step from ``make_concrete_batch(info, seed=step)`` (uniform
-random edges, so step n always sees batch n and a resumed run matches an
-uninterrupted one), the ``gin-tu`` model at its published widths (5
-layers, 64 hidden), AdamW (lr ``--lr``, no weight decay) and the
-checkpoint manager. Every layer's neighbor sum is the ``segment_spmm``
-CUDA kernel, forward and backward. ``--nodes 2449408 --edges 61859840
---d-feat 100 --classes 47`` is the ``ogb_products`` shape.
+random edges, random positions and species, so step n always sees batch
+n and a resumed run matches an uninterrupted one), the architecture's
+model built by its config's ``_reduced_init`` where it has one and
+``_init`` otherwise, as the reference does (so ``equiformer-v2`` trains at
+its reduced widths here; ``gin-tu``, ``schnet`` and ``meshgraphnet`` at
+their published ones), AdamW (lr ``--lr``, no weight decay) and the
+checkpoint manager. GIN-TU's neighbor sums are the ``segment_spmm`` CUDA
+kernel, forward and backward; the geometric models' message sums are
+``segment_sum``. ``--nodes 2449408 --edges 61859840 --d-feat 100
+--classes 47`` is the ``ogb_products`` shape.
 
-Runs on ``--device cuda`` (default; raises without a card) or
-``--device cpu``. Only ``--arch gin-tu`` is ported; the other GNN
-architectures exit with an error naming the roadmap item.
+Runs on ``--device cuda`` (default; raises without a card) or ``--device
+cpu``. An architecture that is not a GNN (``qwen3-4b``, ``din``, ...)
+exits 2, where the reference asserts; so does an unknown name.
 """
 from __future__ import annotations
 
@@ -27,16 +32,20 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import gin_tu
+from repro_torch.configs import (equiformer_v2, get_arch, gin_tu,
+                                 meshgraphnet, schnet)
 from repro_torch.configs.gnn_common import make_concrete_batch
+from repro_torch.models.common import count_params
 from repro_torch.training import AdamW, CheckpointManager, run_training
 
-# architectures of the reference launcher whose models are not ported yet
-NOT_PORTED = ("schnet", "meshgraphnet", "equiformer-v2")
+# the config module of each GNN architecture (the reference's ``adapters``)
+ADAPTERS = {"gin-tu": gin_tu, "schnet": schnet,
+            "meshgraphnet": meshgraphnet, "equiformer-v2": equiformer_v2}
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
-    """The launcher's flags; an unknown flag exits with an error."""
+    """The launcher's flags; an unknown flag or architecture, or one that
+    is not a GNN, exits with an error."""
     p = argparse.ArgumentParser(prog="repro_torch.launch.train")
     p.add_argument("--arch", default="gin-tu")
     p.add_argument("--steps", type=int, default=100)
@@ -49,11 +58,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = p.parse_args(argv)
-    if args.arch in NOT_PORTED:
-        p.exit(2, f"repro_torch.launch.train: --arch {args.arch} is not "
-                  "ported yet (ROADMAP A11); only gin-tu runs\n")
-    if args.arch != "gin-tu":
+    try:
+        arch = get_arch(args.arch)
+    except KeyError:
         p.exit(2, f"repro_torch.launch.train: unknown --arch {args.arch}\n")
+    if arch.family != "gnn":
+        p.exit(2, f"repro_torch.launch.train: --arch {args.arch} is not a "
+                  f"GNN (family {arch.family}); the train launcher drives "
+                  f"{', '.join(sorted(ADAPTERS))}\n")
     return args
 
 
@@ -62,9 +74,11 @@ def train(args: argparse.Namespace) -> dict:
     dev = resolve_device(args.device)
     info = dict(nodes=args.nodes, edges=args.edges, d_feat=args.d_feat,
                 classes=args.classes, graphs=None)
-    model = gin_tu._init(torch.Generator().manual_seed(0), args.d_feat,
-                         args.classes, "custom", device=dev)
-    n_params = sum(p.numel() for p in model.parameters())
+    mod = ADAPTERS[args.arch]
+    init = getattr(mod, "_reduced_init", None) or mod._init
+    model = init(torch.Generator().manual_seed(0), args.d_feat, args.classes,
+                 "custom", device=dev)
+    n_params = count_params(model)
     print(f"[train] {args.arch}: {n_params:,} params")
     losses = []
 
@@ -72,7 +86,7 @@ def train(args: argparse.Namespace) -> dict:
         return make_concrete_batch(info, seed=step, device=dev)
 
     def loss_fn(m, batch):
-        loss = gin_tu._loss(m, batch, info, "custom")
+        loss = mod._loss(m, batch, info, "custom")
         losses.append(loss.detach())
         return loss
 

@@ -22,15 +22,18 @@ LN_EPS = 1e-5
 RMS_EPS = 1e-6
 
 
-def dense_init(generator: torch.Generator, d_in: int, d_out: int) -> nn.Linear:
+def dense_init(generator: torch.Generator, d_in: int, d_out: int, *,
+               bias: bool = True) -> nn.Linear:
     """``nn.Linear`` initialised like the reference's ``dense_init``:
-    weights ``N(0, 1/d_in)``, zero bias. Drawn on the CPU from
-    ``generator``, so one seed gives the same weights on any device."""
-    lin = nn.Linear(d_in, d_out)
+    weights ``N(0, 1/d_in)``, zero bias (none with ``bias=False``). Drawn
+    on the CPU from ``generator``, so one seed gives the same weights on
+    any device."""
+    lin = nn.Linear(d_in, d_out, bias=bias)
     with torch.no_grad():
         lin.weight.copy_(torch.randn((d_out, d_in), generator=generator)
                          / math.sqrt(d_in))
-        lin.bias.zero_()
+        if bias:
+            lin.bias.zero_()
     return lin
 
 
@@ -89,6 +92,27 @@ def mlp_init(generator: torch.Generator, dims: Sequence[int], *,
 def mlp_from_numpy(params: Sequence[dict], *, act=F.silu) -> MLP:
     """The reference's ``mlp_init`` list of ``{"w", "b"}`` dicts → MLP."""
     return MLP([dense_from_numpy(p) for p in params], act)
+
+
+def count_params(model: nn.Module) -> int:
+    """Number of parameter entries (the reference's ``count_params``)."""
+    return sum(p.numel() for p in model.parameters())
+
+
+def linspace(start: float, stop: float, num: int, *,
+             device: str | torch.device = "cpu") -> torch.Tensor:
+    """float32 ``jnp.linspace(start, stop, num)`` with the bits XLA gives
+    it on the CPU: ``start·(1 - i·r) + (stop·r)·i`` for ``r = 1/(num-1)``
+    rounded to float32 (XLA turns the division by the constant into that
+    product and reassociates it), and ``stop`` itself last.
+    ``torch.linspace`` steps from both ends, so its interior points differ
+    from these in the last place."""
+    if num < 2:
+        return torch.full((num,), start, dtype=torch.float32, device=device)
+    i = torch.arange(num - 1, dtype=torch.float32, device=device)
+    r, lo, hi = (torch.tensor(v, dtype=torch.float32, device=device)
+                 for v in (1.0 / (num - 1), start, stop))
+    return torch.cat([lo * (1 - i * r) + (hi * r) * i, hi[None]])
 
 
 def rms_norm(x: torch.Tensor, g: torch.Tensor, *,

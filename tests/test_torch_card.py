@@ -648,3 +648,135 @@ def test_sharded_lookups_card_match_cpu(card, strategy, tmp_path):
         assert st["host_fetches"] > 0
     for pf in pfs:
         pf.close()
+
+
+@pytest.mark.cuda
+def test_psgs_fap_and_placement_are_bitwise_on_card(card):
+    """ROADMAP C1: PSGS and FAP at the serve launcher's default graph
+    (20,000 nodes, average degree 12, fan-outs 10, 5; the hub node takes
+    105,387 of the 239,991 edges), computed twice on the card, equal each
+    other and the CPU bit for bit, and so do the ``quiver_placement``
+    tiers built from each FAP."""
+    from repro_torch.core import (TopologySpec, WorkloadGenerator,
+                                  compute_fap, compute_psgs,
+                                  quiver_placement)
+    from repro_torch.graph import power_law_graph
+    from repro_torch.launch import serve as serve_launcher
+    args = serve_launcher.parse_args([])
+    fanouts = serve_launcher.fanouts_of(args)
+    graph = power_law_graph(args.nodes, args.avg_degree, seed=0)
+    gen = WorkloadGenerator(args.nodes, graph.out_degree, seed=2)
+    topo = TopologySpec(num_pods=1, devices_per_pod=1,
+                        rows_per_device=args.nodes // 4,
+                        rows_host=args.nodes // 2,
+                        hot_replicate_fraction=args.hot_frac)
+    runs = [(compute_psgs(graph, fanouts, device=dev),
+             compute_fap(graph, fanouts, seed_prob=gen.p, device=dev))
+            for dev in (card, card, "cpu")]
+    for name, i in (("psgs", 0), ("fap", 1)):
+        want = runs[2][i].view(np.int32)
+        for r in runs[:2]:
+            split = int((r[i].view(np.int32) != want).sum())
+            assert split == 0, f"{name}: {split} entries differ from the CPU"
+    tiers = [quiver_placement(r[1], topo).tier for r in runs]
+    assert np.array_equal(tiers[0], tiers[2])
+    assert np.array_equal(tiers[1], tiers[2])
+
+
+# geometric training: full widths on a small graph, card vs the CPU port
+GEO_GRAPH = dict(nodes=256, edges=1024, d_feat=64, classes=16, graphs=None)
+
+
+def _geometric_grads(mod, dev, dtype):
+    from repro_torch.configs.gnn_common import make_concrete_batch
+    model = mod._init(torch.Generator().manual_seed(0), GEO_GRAPH["d_feat"],
+                      GEO_GRAPH["classes"], "custom", device=dev).to(dtype)
+    batch = {k: v.to(dtype) if v.is_floating_point() else v
+             for k, v in make_concrete_batch(GEO_GRAPH, seed=0,
+                                             device=dev).items()}
+    named = dict(model.named_parameters())
+    loss = mod._loss(model, batch, GEO_GRAPH, "custom")
+    grads = torch.autograd.grad(loss, list(named.values()))
+    return float(loss.detach()), {k: g.cpu().double()
+                                  for k, g in zip(named, grads)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["schnet", "meshgraphnet",
+                                  "equiformer-v2"])
+def test_geometric_card_matches_cpu(card, arch):
+    """Each geometric architecture at its published widths: the card's
+    loss within 1e-4 of the CPU port's, and every gradient against the
+    CPU port in fp64 within 1e-3 of its own size (MeshGraphNet 1e-2: a
+    ReLU flipped by fp32 rounding moves its unit's row; EquiformerV2's
+    logit biases over their weight's size; ``chip_smoke.py`` says why),
+    all of it within 1e-3 in norm; no kernel of the repo launches."""
+    from repro_torch.launch import train as launcher
+    mod = launcher.ADAPTERS[arch]
+    before = [m.LAUNCHES.value for m in (tg_pkg, ga_pkg, eb_pkg, sp_pkg,
+                                         fa_pkg)]
+    loss, got = _geometric_grads(mod, card, torch.float32)
+    assert before == [m.LAUNCHES.value for m in (tg_pkg, ga_pkg, eb_pkg,
+                                                 sp_pkg, fa_pkg)]
+    want_loss, _ = _geometric_grads(mod, "cpu", torch.float32)
+    _, witness = _geometric_grads(mod, "cpu", torch.float64)
+    assert abs(loss - want_loss) <= 1e-4
+    tol = 1e-2 if arch == "meshgraphnet" else 1e-3
+    for k, w in witness.items():
+        size_key = (k[:-len("bias")] + "weight"
+                    if k.endswith("alpha.layers.1.bias") else k)
+        size = float(witness[size_key].abs().max())
+        diff = float((got[k] - w).abs().max())
+        assert (diff <= tol * size) if size else diff == 0, (k, diff, size)
+    num = torch.sqrt(sum(((got[k] - w) ** 2).sum()
+                         for k, w in witness.items()))
+    den = torch.sqrt(sum((w ** 2).sum() for w in witness.values()))
+    assert float(num / den) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_equiformer_equivariance_at_lmax6_on_card(card):
+    """Full-width EquiformerV2 (l_max 6) on the card: node logits
+    unchanged under a rotation of the positions, and 8 edge chunks equal
+    to 1, within 5e-5 (the CPU port: 5.7e-6 and 4.8e-6 at 512 nodes)."""
+    from repro_torch.configs import equiformer_v2
+    from repro_torch.configs.gnn_common import make_concrete_batch
+    from repro_torch.models.equiformer_v2 import equiformer_forward
+    from repro_torch.models.so3 import rotation_matrix_zyz
+    model = equiformer_v2._init(torch.Generator().manual_seed(0), 64, 16,
+                                "custom", device=card)
+    b = make_concrete_batch(GEO_GRAPH, seed=1, device=card)
+    src = torch.where(b["src"] == b["dst"], -1, b["src"])  # no self-loops
+    rot = torch.as_tensor(rotation_matrix_zyz(0.4, 1.0, -0.3),
+                          dtype=torch.float32, device=card)
+    kw = dict(num_nodes=GEO_GRAPH["nodes"], node_feat=b["node_feat"])
+    with torch.no_grad():
+        base = equiformer_forward(model, b["species"], b["positions"], src,
+                                  b["dst"], **kw)
+        turned = equiformer_forward(model, b["species"],
+                                    b["positions"] @ rot.T, src, b["dst"],
+                                    **kw)
+        chunked = equiformer_forward(model, b["species"], b["positions"],
+                                     src, b["dst"], edge_chunks=8, **kw)
+    assert bool(torch.isfinite(base).all())
+    assert float((turned - base).abs().max()) <= 5e-5
+    assert float((chunked - base).abs().max()) <= 5e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["schnet", "meshgraphnet",
+                                  "equiformer-v2"])
+def test_launcher_trains_geometric_on_card(card, arch, tmp_path):
+    """``repro_torch.launch.train --arch A`` on the card: finite losses,
+    a checkpoint, and a resumed run that ends with the uninterrupted
+    run's last loss within 1e-4."""
+    from repro_torch.launch import train as launcher
+    argv = ["--device", "cuda", "--arch", arch, "--nodes", "512",
+            "--edges", "4096"]
+    whole = launcher.main(argv + ["--steps", "3"])
+    assert len(whole["losses"]) == 3 and all(np.isfinite(whole["losses"]))
+    ck = ["--ckpt-dir", str(tmp_path), "--ckpt-every", "1"]
+    launcher.main(argv + ["--steps", "2"] + ck)
+    resumed = launcher.main(argv + ["--steps", "3"] + ck)
+    assert resumed["step"] == 3 and len(resumed["losses"]) == 1
+    assert abs(resumed["losses"][0] - whole["losses"][2]) <= 1e-4

@@ -199,3 +199,33 @@ def test_segment_ops_match():
     for a, b in pairs:
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
                                    atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(), (5,), (2, 3)])
+def test_segment_sum_ordered_is_the_sequential_sum(shape):
+    """``segment_sum_ordered`` adds each segment's terms from zero in their
+    order, bit for bit (a Python loop in fp32 is the witness), equals
+    ``segment_sum`` on the CPU bit for bit (``index_add_`` is sequential
+    there), drops out-of-range ids and leaves empty segments 0; against
+    the reference's ``segment_sum`` within 1e-5."""
+    rng = np.random.default_rng(9)
+    n, segs = 400, 23
+    data = (rng.normal(size=(n,) + shape) * 10.0 ** rng.integers(
+        -3, 4, size=(n,) + shape)).astype(np.float32)
+    ids = rng.integers(-2, segs + 2, n).astype(np.int32)
+    ids[ids == 7] = 8  # an empty segment
+    got = tseg.segment_sum_ordered(torch.from_numpy(data),
+                                   torch.from_numpy(ids), segs).numpy()
+    want = np.zeros((segs,) + shape, np.float32)
+    for i in range(n):
+        if 0 <= ids[i] < segs:
+            want[ids[i]] = want[ids[i]] + data[i]
+    assert got.dtype == np.float32 and got.shape == want.shape
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    assert not got[7].any()
+    plain = tseg.segment_sum(torch.from_numpy(data), torch.from_numpy(ids),
+                             segs).numpy()
+    assert np.array_equal(got.view(np.int32), plain.view(np.int32))
+    ref = np.asarray(jseg.segment_sum(jnp.asarray(data), jnp.asarray(ids),
+                                      segs))
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)

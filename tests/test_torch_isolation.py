@@ -53,6 +53,13 @@ def test_port_imports_with_jax_and_reference_blocked():
             "import repro_torch.core.gpu_cache, repro_torch.core.prefetch\n"
             "import repro_torch.serving.adaptive, repro_torch.serving.gateway\n"
             "import repro_torch.testing, repro_torch.bench.profile_serve\n"
+            "import repro_torch.models.so3, repro_torch.models.schnet\n"
+            "import repro_torch.models.meshgraphnet\n"
+            "import repro_torch.models.equiformer_v2\n"
+            "import repro_torch.configs.base, repro_torch.configs.schnet\n"
+            "import repro_torch.configs.meshgraphnet\n"
+            "import repro_torch.configs.equiformer_v2\n"
+            "import repro_torch.launch.train_gnn_100m\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
             "               for m in sys.modules if sys.modules[m])\n"
             "print('ok')\n")

@@ -341,8 +341,8 @@ def test_launcher_runs_on_cpu(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["--arch", "schnet"], "ROADMAP A11"),
-    (["--arch", "equiformer-v2"], "ROADMAP A11"),
+    (["--arch", "qwen3-4b"], "not a GNN (family lm)"),
+    (["--arch", "din"], "not a GNN (family recsys)"),
     (["--arch", "nope"], "unknown --arch"),
     (["--sharded"], "unrecognized")])
 def test_launcher_rejects_unported_archs_and_flags(argv, needle, capsys):
