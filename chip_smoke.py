@@ -93,6 +93,21 @@ Phases (any failed check exits non-zero before the result line):
              and within 1e-4 of the port on the CPU, and scores 1,000,000
              candidates for one user (exactly 2 launches per chunk of
              31,250; finite; the first 4,096 within 1e-4 of the CPU port).
+5b. din train — DIN ``train_batch`` at full size through ``repro_torch.
+             launch.recsys_din --config din --train-steps
+             DIN_TRAIN_STEPS`` (B 65,536, history 100, the 10M-row item
+             table as a parameter on the card), the ``embedding_bag``
+             counter zeroed just before and read just after: exactly 2
+             launches a step (the two bags' forwards; their backward is
+             torch ops). Finite losses, step 0 within 0.1 of ln 2, step
+             ms and its stages, peak under the card's memory. The last
+             step's two calls (the weighted interest sum and the mean over
+             the 6,553,600 × 36 history table) are recorded, held bitwise
+             to the plain version and timed beside it, ``F.embedding_bag``
+             and the bound. Then card
+             vs CPU gradients at the example config (``hold_card_vs_cpu``:
+             the loss within ``CPU_TOL``, every gradient against an fp64
+             witness within ``GRAD_TOL`` of its size).
 6. train   — GIN-TU full-graph training at the ``ogb_products`` shape
              (2,449,408 nodes, 61,859,840 edges, d_feat 100, 47 classes).
              Kernel checks first: ``segment_spmm`` at the inputs one GIN
@@ -134,6 +149,16 @@ Phases (any failed check exits non-zero before the result line):
              width EquiformerV2's logits under ``rotation_matrix_zyz(
              EQ_ROTATION)`` within ``EQ_EQUIV_TOL`` and with 8 edge chunks
              within ``EQ_CHUNK_TOL``. One ``{"geometric": ...}`` line.
+6c. full graph — GAT and SAGE full-graph forwards on the serve
+             launcher's graph (20,000 nodes, 239,991 edges) with the
+             features looked up from its store (checked equal to the
+             launcher's): SAGE at sage-base widths (128-128), its
+             neighbour sums through ``segment_spmm`` on the out-neighbour
+             ELL table (20,000 × 5,003), exactly one launch a layer; GAT
+             at 4 heads × 32, none; each within ``CPU_TOL`` of the port on
+             the CPU; the kernel at both SAGE layers' inputs bitwise equal
+             to its plain version, layer 1's call timed beside it and
+             ``torch.sparse.mm``, with its bound (distinct rows read once).
 7. lm      — qwen3-4b serving at its published widths and 36 layers.
              The earlier stacks are released first. ``repro_torch.launch.
              lm`` runs at its defaults (one request: a 32,768-token prefill,
@@ -180,7 +205,20 @@ Phases (any failed check exits non-zero before the result line):
              layer's MoE output is held with the card's routing fed to the
              CPU: fp32 within 1e-4, bf16 within ``MOE_BF16_ULPS`` ulps);
              fp32 logits within 1e-4, bf16 within ``LM_BF16_CPU_TOL``.
-8. summary — one ``{"kernels": [...]}`` line, then the result line
+7c. lm train — qwen3-4b ``train_4k`` at its published widths and 36
+             layers, last, with nothing else on the card: ``repro_torch.
+             launch.lm --shape train_4k --steps LM_TRAIN_STEPS --batch 1``
+             (fp32 weights and AdamW state, bf16 activations, 4,096
+             positions); finite losses, step 0 between ln V and ln V +
+             1.5, peak under the card's memory, step ms and its stages
+             (forward, backward, optimizer). Then card vs CPU at the
+             smoke reduction: fp32 through ``hold_card_vs_cpu``; bf16
+             activations against the fp64 witness within
+             ``LM_BF16_LOSS_TOL`` (loss) and ``LM_BF16_GRAD_TOL``
+             (gradients in norm).
+8. summary — one ``{"kernels": [...]}`` line (``launches_by_path`` splits
+             ``embedding_bag``'s and ``segment_spmm``'s launches by path),
+             then the result line
              ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
@@ -260,6 +298,20 @@ EQ_EQUIV_TOL = 5e-5
 EQ_CHUNK_TOL = 5e-5
 SHARDED_WORLD = 4          # logical shards of phase 4c on one card
 SHARDED_HOT_FRAC = 0.25    # the launcher's --hot-frac
+DIN_TRAIN_STEPS = 3        # phase 5b: train_batch steps at full size
+DIN_CPU_TRAIN_BATCH = 256  # phase 5b's card vs CPU: the example config
+FULL_GRAPH_SAGE = [128, 128, 128]  # phase 6c: sage-base widths
+FULL_GRAPH_GAT = ([128, 32, 32], 4)  # phase 6c: 4 heads of 32
+SAGE_LAYERS = 2            # segment_spmm launches a sage_full_graph call
+LM_TRAIN_STEPS = 3         # phase 7c: qwen3-4b train_4k steps, B 1
+LM_TRAIN_PARAMS = 4_411_415_040
+# phase 7c's card vs CPU at the smoke reduction in bf16 activations (fp32
+# weights): the loss within 2e-2 of the fp64 CPU witness, the gradients
+# within 5e-2 of its norm (bf16 keeps 8 bits; both sides round q, k, v,
+# p, every product's output and the residual stream; set before the card
+# ran it)
+LM_BF16_LOSS_TOL = 2e-2
+LM_BF16_GRAD_TOL = 5e-2
 
 
 def log(msg: str) -> None:
@@ -1410,12 +1462,65 @@ def ring_edges_embedding_bag(table, ids, weights, same, gen) -> None:
                 same(again, first, f"{name} {mode} repeated")
 
 
+def bag_call_row(shape: str, table, ids, weights, mode: str, *,
+                 big: bool) -> dict:
+    """One ``embedding_bag`` call's timing row: the kernel, its plain
+    version and ``F.embedding_bag`` (on the valid ids, compacted, with
+    offsets) on the same inputs, CUDA events; the bound from the bytes
+    (each valid slot's row read once, ids and weights once, the output
+    written once) and the FMAs of the valid slots. ``big`` cuts the plain
+    version's repeats. Logs the row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import embedding_bag as eb
+    bsz, bag = ids.shape
+    d, elem = table.shape[1], table.element_size()
+    valid = ids >= 0
+    n_valid = int(valid.sum())
+    flat = ids[valid].long()
+    offsets = torch.zeros(bsz, dtype=torch.long, device=ids.device)
+    offsets[1:] = valid.sum(1).cumsum(0)[:-1]
+    psw = weights[valid] if weights is not None else None
+
+    def library():
+        return F.embedding_bag(flat, table, offsets, mode=mode,
+                               per_sample_weights=psw)
+
+    def kernel():
+        return eb.embedding_bag_cuda(table, ids, weights, mode=mode)
+
+    log(f"F.embedding_bag yardstick ({shape} {mode}) max |diff| vs "
+        f"kernel: {float((library() - kernel()).abs().max()):.3g}")
+    nbytes = (n_valid * d * elem
+              + bsz * bag * (4 + (elem if weights is not None else 0))
+              + bsz * d * elem)
+    flops = n_valid * d * (2 if weights is not None else 1)
+    r = {"shape": shape, "call": ("interest (sum, weighted)"
+                                  if weights is not None
+                                  else "hist_mean (mean)"),
+         "ids": [bsz, bag], "d": d, "valid": n_valid,
+         "ms": time_ms(kernel),
+         "plain_ms": time_ms(lambda: eb.embedding_bag_ref(
+             table, ids, weights, mode=mode),
+             **(dict(inner=3, reps=5) if big else {})),
+         "library_ms": time_ms(library),
+         "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3,
+         "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                      >= flops / FP32_FLOPS else "operations"),
+         "bytes": nbytes,
+         "call_ms": time_ms(kernel, graph=False)}
+    log(f"embedding_bag {shape} {r['call']}: kernel {r['ms']:.5f} ms, plain "
+        f"{r['plain_ms']:.5f} ms, library {r['library_ms']:.5f} ms, bound "
+        f"{r['bound_ms']:.5f} ms ({nbytes} bytes, {r['bound_by']}); eager "
+        f"wrapper call {r['call_ms']:.5f} ms")
+    return r
+
+
 def embedding_bag_phase(stack) -> dict:
     """Bitwise checks and timings of ``embedding_bag`` at the inputs the
     DIN path hands it; prints one timing row per captured call. Returns
     the ``kernels`` entry (the serve_p99 interest call)."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import embedding_bag as eb
 
     cap = capture_din_inputs(stack)
@@ -1481,59 +1586,10 @@ def embedding_bag_phase(stack) -> dict:
         "bf16 d 37; each repeated with equal bits)")
     check_no_spills("embedding_bag")
 
-    rows_out = []
-    for shape, calls in cap.items():
-        big = shape == "retrieval_cand"
-        for (table, ids, weights), kw in calls:
-            mode = kw["mode"]
-            bsz, bag = ids.shape
-            d, elem = table.shape[1], table.element_size()
-            valid = ids >= 0
-            n_valid = int(valid.sum())
-            # F.embedding_bag on the valid ids, compacted, with offsets
-            flat = ids[valid].long()
-            offsets = torch.zeros(bsz, dtype=torch.long, device=dev)
-            offsets[1:] = valid.sum(1).cumsum(0)[:-1]
-            psw = weights[valid] if weights is not None else None
-
-            def library(flat=flat, table=table, offsets=offsets, mode=mode,
-                        psw=psw):
-                return F.embedding_bag(flat, table, offsets, mode=mode,
-                                       per_sample_weights=psw)
-
-            kern = eb.embedding_bag_cuda(table, ids, weights, mode=mode)
-            log(f"F.embedding_bag yardstick ({shape} {mode}) max |diff| vs "
-                f"kernel: {float((library() - kern).abs().max()):.3g}")
-            nbytes = (n_valid * d * elem
-                      + bsz * bag * (4 + (elem if weights is not None else 0))
-                      + bsz * d * elem)
-            flops = n_valid * d * (2 if weights is not None else 1)
-            plain_reps = dict(inner=3, reps=5) if big else {}
-            rows_out.append({
-                "shape": shape, "call": ("interest (sum, weighted)"
-                                         if weights is not None
-                                         else "hist_mean (mean)"),
-                "ids": [bsz, bag], "d": d, "valid": n_valid,
-                "ms": time_ms(lambda t=table, i=ids, w=weights, m=mode:
-                              eb.embedding_bag_cuda(t, i, w, mode=m)),
-                "plain_ms": time_ms(lambda t=table, i=ids, w=weights, m=mode:
-                                    eb.embedding_bag_ref(t, i, w, mode=m),
-                                    **plain_reps),
-                "library_ms": time_ms(library),
-                "bound_ms": max(nbytes / HBM_BYTES_PER_S,
-                                flops / FP32_FLOPS) * 1e3,
-                "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                             >= flops / FP32_FLOPS else "operations"),
-                "bytes": nbytes,
-                "call_ms": time_ms(lambda t=table, i=ids, w=weights, m=mode:
-                                   eb.embedding_bag_cuda(t, i, w, mode=m),
-                                   graph=False)})
-    for r in rows_out:
-        log(f"embedding_bag {r['shape']} {r['call']}: kernel {r['ms']:.5f} "
-            f"ms, plain {r['plain_ms']:.5f} ms, library "
-            f"{r['library_ms']:.5f} ms, bound {r['bound_ms']:.5f} ms "
-            f"({r['bytes']} bytes, {r['bound_by']}); eager wrapper call "
-            f"{r['call_ms']:.5f} ms")
+    rows_out = [bag_call_row(shape, table, ids, weights, kw["mode"],
+                             big=shape == "retrieval_cand")
+                for shape, calls in cap.items()
+                for (table, ids, weights), kw in calls]
     print(json.dumps({"embedding_bag_calls": rows_out}), flush=True)
     head = rows_out[0]  # serve_p99, the weighted interest sum
     entry = {"name": "embedding_bag", "route": "cuda",
@@ -1622,6 +1678,104 @@ def din_phase(stack, entry: dict) -> None:
         "candidates": DIN_CANDIDATES, "chunk": RETRIEVAL_CHUNK, "ms": ret.ms,
         "launches": ret_launches, "cpu_max_abs_diff": worst}}), flush=True)
     entry["launches"] = serve_launches + ret_launches
+    entry["launches_by_path"] = {"din_serve": serve_launches,
+                                 "din_retrieval": ret_launches}
+
+
+def din_train_phase(entry: dict) -> None:
+    """DIN ``train_batch`` at full size through ``repro_torch.launch.
+    recsys_din --config din --train-steps DIN_TRAIN_STEPS`` (B 65,536,
+    history 100, the 10M-row item table as a plain parameter), with the
+    ``embedding_bag`` counter zeroed just before and read just after
+    (exactly 2 launches a step: the two bags' forwards; their backward is
+    torch ops). The last step's two calls are recorded and the kernel held
+    bitwise to its plain version on them, then timed beside plain,
+    ``F.embedding_bag`` and its bound; then card vs CPU gradients at the
+    example config."""
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
+    from repro_torch.launch import recsys_din
+    from repro_torch.models.din import din_init, din_loss
+
+    calls, seen = [], [0]
+    original = bag_ops.embedding_bag
+
+    def recorder(table, ids, weights=None, *, mode="sum"):
+        # the last step's two calls (earlier steps' inputs are not kept)
+        seen[0] += 1
+        if seen[0] > 2 * (DIN_TRAIN_STEPS - 1):
+            calls.append((table.detach(), ids, None if weights is None
+                          else weights.detach(), mode))
+        return original(table, ids, weights, mode=mode)
+
+    bag_ops.embedding_bag = recorder
+    eb.LAUNCHES.reset()
+    try:
+        report = recsys_din.train("din", DIN_TRAIN_STEPS, device="cuda")
+    finally:
+        bag_ops.embedding_bag = original
+    launches = eb.LAUNCHES.value
+    stages = report["stage_ms"]
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"din train_batch: {report['steps']} steps at B {report['batch']}, "
+        f"history {report['hist_len']}, {report['items']} items "
+        f"({report['params']:,} params): losses {report['losses']}, step "
+        f"ms {[round(x, 2) for x in report['step_ms']]}, stages "
+        f"{[{k: round(v, 2) for k, v in st.items()} for st in stages]}"
+        f", peak {report['peak_bytes'] / 2**30:.2f} GiB, embedding_bag "
+        f"launches {launches}")
+    check(launches == 2 * DIN_TRAIN_STEPS, f"din training launched "
+          f"embedding_bag {launches} times for {DIN_TRAIN_STEPS} steps, not 2 "
+          "each")
+    check(report["batch"] == 65536 and report["items"] == 10_000_000
+          and len(report["losses"]) == DIN_TRAIN_STEPS
+          and all(math.isfinite(x) for x in report["losses"])
+          and abs(report["losses"][0] - math.log(2)) < 0.1,
+          f"din training: batch {report['batch']}, losses "
+          f"{report['losses']} (step 0 should be near ln 2)")
+    check(report["peak_bytes"] < total, f"din training peak "
+          f"{report['peak_bytes']} B over the card's {total} B")
+    print(json.dumps({"din_train": report, "launches": launches}),
+          flush=True)
+    entry["launches_by_path"]["din_train_batch"] = launches
+    entry["launches"] += launches
+
+    check(len(calls) == 2, f"din's last train step made {len(calls)} "
+          "embedding_bag calls, not 2")
+    for table, ids, weights, mode in calls:
+        log(f"embedding_bag train_batch inputs: table={tuple(table.shape)} "
+            f"{table.dtype} ids={tuple(ids.shape)} weighted="
+            f"{weights is not None} mode={mode} valid={int((ids >= 0).sum())}")
+        got = eb.embedding_bag(table, ids, weights, mode=mode)
+        want = eb.embedding_bag_ref(table, ids, weights, mode=mode)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), "embedding_bag != plain at din "
+              f"train_batch's {mode} call")
+        del got, want
+    log("embedding_bag == plain bitwise at both of din train_batch's calls")
+    rows = [bag_call_row("train_batch", *call, big=True) for call in calls]
+    del calls
+    print(json.dumps({"embedding_bag_train_calls": rows}), flush=True)
+
+    cfg = recsys_din.EXAMPLE
+    pop = recsys_din.popularity(cfg, np.random.default_rng(0))
+
+    def run(dev, dtype):
+        model = din_init(torch.Generator().manual_seed(0), cfg,
+                         device=dev).to(dtype)
+        batch = recsys_din.draw_requests(
+            cfg, DIN_CPU_TRAIN_BATCH, np.random.default_rng(1),
+            pop / pop.sum(), torch.device(dev), labels=True)
+        batch["dense_feat"] = batch["dense_feat"].to(dtype)
+        return din_loss(model, cfg, batch), model
+
+    hold_card_vs_cpu("din", run, f"the example config ({cfg.n_items} "
+                     f"items, history {cfg.hist_len}), B "
+                     f"{DIN_CPU_TRAIN_BATCH}")
 
 
 # ---------------------------------------------------------------------------
@@ -1692,6 +1846,57 @@ def ring_edges_segment_spmm(ids, feat, same, gen) -> None:
             del first, again
 
 
+def spmm_call_row(name: str, ids, feat) -> dict:
+    """One unweighted ``segment_spmm`` call's timing row: the kernel, its
+    plain version and ``torch.sparse.mm`` (the same ids as a CSR matrix
+    of ones) on the same inputs, CUDA events; the bound from the bytes
+    (the id table, each distinct row read once, the output written once)
+    and one add for each valid id's row. Logs the row."""
+    import torch
+    from repro_torch.kernels import segment_spmm as sp
+    n, dmax = ids.shape
+    m, d = feat.shape
+    elem = feat.element_size()
+    valid = ids >= 0
+    nnz = int(valid.sum())
+    rows_read = int((torch.bincount(ids[valid].long(), minlength=m) > 0)
+                    .sum())
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=ids.device)
+    crow[1:] = valid.sum(1).cumsum(0)
+    adj = torch.sparse_csr_tensor(
+        crow, ids[valid].long(), torch.ones(nnz, device=ids.device),
+        size=(n, m), check_invariants=False)
+    kern = sp.segment_spmm_cuda(ids, feat)
+    lib = torch.sparse.mm(adj, feat)
+    log(f"torch.sparse.mm yardstick ({name}) max |diff| vs kernel: "
+        f"{float((lib - kern).abs().max()):.3g} (its sums in another "
+        f"order; max |kernel| {float(kern.abs().max()):.4g})")
+    del kern, lib
+    nbytes = n * dmax * 4 + rows_read * d * elem + n * d * elem
+    flops = nnz * d
+    r = {"call": name, "ids": [n, dmax], "feat": [m, d], "nnz": nnz,
+         "rows_read": rows_read, "gathered_bytes": nnz * d * elem,
+         "ms": time_ms(lambda: sp.segment_spmm_cuda(ids, feat), inner=5,
+                       reps=10),
+         "plain_ms": time_ms(lambda: sp.segment_spmm_plain(ids, feat),
+                             inner=1, reps=3, graph=False),
+         "library_ms": time_ms(lambda: torch.sparse.mm(adj, feat), inner=3,
+                               reps=5, graph=False),
+         "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3,
+         "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                      >= flops / FP32_FLOPS else "operations"),
+         "bytes": nbytes}
+    r["gathered_hbm_share"] = (r["gathered_bytes"] / (r["ms"] * 1e-3)
+                               / HBM_BYTES_PER_S)
+    log(f"segment_spmm {name} {r['ids']} x {r['feat']}: kernel "
+        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, torch.sparse.mm "
+        f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({nbytes} "
+        f"bytes, {r['bound_by']}); gathered {r['gathered_bytes']} bytes, "
+        f"{r['gathered_bytes'] / (r['ms'] * 1e-3) / 1e12:.3f} TB/s = "
+        f"{r['gathered_hbm_share']:.4f} of HBM's 3.35 TB/s")
+    return r
+
+
 def segment_spmm_phase() -> dict:
     """Bitwise checks and timings of ``segment_spmm`` at the inputs the
     training path hands it; prints one timing row per captured call.
@@ -1759,54 +1964,8 @@ def segment_spmm_phase() -> dict:
         "bitwise equal")
     check_no_spills("segment_spmm")
 
-    rows_out = []
-    for name, (ids, feat, _) in cap.items():
-        n, dmax = ids.shape
-        m, d = feat.shape
-        elem = feat.element_size()
-        valid = ids >= 0
-        nnz = int(valid.sum())
-        rows_read = int((torch.bincount(ids[valid].long(), minlength=m) > 0)
-                        .sum())
-        crow = torch.zeros(n + 1, dtype=torch.int64, device=dev)
-        crow[1:] = valid.sum(1).cumsum(0)
-        adj = torch.sparse_csr_tensor(
-            crow, ids[valid].long(), torch.ones(nnz, device=dev),
-            size=(n, m), check_invariants=False)
-        kern = sp.segment_spmm_cuda(ids, feat)
-        lib = torch.sparse.mm(adj, feat)
-        log(f"torch.sparse.mm yardstick ({name}) max |diff| vs kernel: "
-            f"{float((lib - kern).abs().max()):.3g}")
-        del kern, lib
-        nbytes = n * dmax * 4 + rows_read * d * elem + n * d * elem
-        flops = nnz * d
-        rows_out.append({
-            "call": name, "ids": [n, dmax], "feat": [m, d], "nnz": nnz,
-            "rows_read": rows_read, "gathered_bytes": nnz * d * elem,
-            "ms": time_ms(lambda i=ids, f=feat: sp.segment_spmm_cuda(i, f),
-                          inner=5, reps=10),
-            "plain_ms": time_ms(lambda i=ids, f=feat:
-                                sp.segment_spmm_plain(i, f), inner=1,
-                                reps=3, graph=False),
-            "library_ms": time_ms(lambda a=adj, f=feat: torch.sparse.mm(a, f),
-                                  inner=3, reps=5, graph=False),
-            "bound_ms": max(nbytes / HBM_BYTES_PER_S,
-                            flops / FP32_FLOPS) * 1e3,
-            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                         >= flops / FP32_FLOPS else "operations"),
-            "bytes": nbytes})
-        r = rows_out[-1]
-        r["gathered_hbm_share"] = (r["gathered_bytes"] / (r["ms"] * 1e-3)
-                                   / HBM_BYTES_PER_S)
-        del adj, crow
-    for r in rows_out:
-        log(f"segment_spmm {r['call']} {r['ids']} x {r['feat']}: kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"torch.sparse.mm {r['library_ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bytes']} bytes, {r['bound_by']}); "
-            f"gathered {r['gathered_bytes']} bytes, "
-            f"{r['gathered_bytes'] / (r['ms'] * 1e-3) / 1e12:.3f} TB/s = "
-            f"{r['gathered_hbm_share']:.4f} of HBM's 3.35 TB/s")
+    rows_out = [spmm_call_row(name, ids, feat)
+                for name, (ids, feat, _) in cap.items()]
     print(json.dumps({"segment_spmm_calls": rows_out}), flush=True)
     head = rows_out[1]  # layer 2's forward, d 64
     return {"name": "segment_spmm", "route": "cuda",
@@ -1853,6 +2012,7 @@ def train_phase(entry: dict) -> None:
                                 "peak_bytes": peak},
                       "launches": launches}), flush=True)
     entry["launches"] = launches
+    entry["launches_by_path"] = {"gin_tu_train": launches}
 
     defaults = train_launcher.parse_args([])
     info = dict(nodes=defaults.nodes, edges=defaults.edges,
@@ -1864,33 +2024,46 @@ def train_phase(entry: dict) -> None:
 def card_vs_cpu(name: str, mod, info: dict, *, tol_of=lambda k: GRAD_TOL,
                 size_of=lambda k: k) -> dict:
     """``mod._init`` (seed 0) and ``mod._loss`` on ``make_concrete_batch(
-    info, seed=0)``: the card's loss against the CPU port's within
-    ``CPU_TOL``, and every parameter's gradient on the card and on the CPU
-    (fp32) against an fp64 witness (the CPU port in fp64; the loss head
-    casts to fp32 in every run, as the reference does): max |diff| over
-    the largest fp64 gradient entry of parameter ``size_of(name)`` (its
-    own unless said otherwise) within ``tol_of(name)``, where that is 0
-    exactly 0; and all parameters' gradients together within ``GRAD_TOL``
-    of the witness's norm."""
-    import math
-
+    info, seed=0)`` through :func:`hold_card_vs_cpu`."""
     import torch
     from repro_torch.configs.gnn_common import make_concrete_batch
-    out = {}
-    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
-                       ("cpu", torch.float64)):
+
+    def run(dev, dtype):
         model = mod._init(torch.Generator().manual_seed(0), info["d_feat"],
                           info["classes"], "custom", device=dev).to(dtype)
         batch = {k: v.to(dtype) if v.is_floating_point() else v
                  for k, v in make_concrete_batch(info, seed=0,
                                                  device=dev).items()}
+        return mod._loss(model, batch, info, "custom"), model
+
+    return hold_card_vs_cpu(name, run, info, tol_of=tol_of, size_of=size_of)
+
+
+def hold_card_vs_cpu(name: str, run, what, *, tol_of=lambda k: GRAD_TOL,
+                     size_of=lambda k: k) -> dict:
+    """``run(device, dtype) -> (loss, model)`` on the card in fp32, on the
+    CPU in fp32 and in fp64: the card's loss against the CPU port's within
+    ``CPU_TOL``, and every parameter's gradient on the card and on the CPU
+    (fp32) against an fp64 witness (the CPU port in fp64; a loss head that
+    casts to fp32 does so in every run, as the reference does): max |diff|
+    over the largest fp64 gradient entry of parameter ``size_of(name)``
+    (its own unless said otherwise) within ``tol_of(name)``, where that is
+    0 exactly 0; and all parameters' gradients together within
+    ``GRAD_TOL`` of the witness's norm. ``what`` names the inputs in the
+    log."""
+    import math
+
+    import torch
+    out = {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
+                       ("cpu", torch.float64)):
+        loss, model = run(dev, dtype)
         params = dict(model.named_parameters())
-        loss = mod._loss(model, batch, info, "custom")
         grads = torch.autograd.grad(loss, list(params.values()))
         out[dev if dtype == torch.float32 else "fp64"] = (
             float(loss.detach()),
             {k: g.cpu().double() for k, g in zip(params, grads)})
-        del model, batch, params, loss, grads
+        del model, params, loss, grads
     loss_diff = abs(out["cuda"][0] - out["cpu"][0])
     check(loss_diff <= CPU_TOL, f"{name} card vs CPU loss |diff| "
           f"{loss_diff:.3g} > {CPU_TOL}")
@@ -1918,7 +2091,7 @@ def card_vs_cpu(name: str, mod, info: dict, *, tol_of=lambda k: GRAD_TOL,
                   f"{size_of(k)}'s > {tol_of(k)}")
             if rel >= worst.get(side, (0.0, ""))[0]:
                 worst[side] = (rel, k)
-    log(f"{name} card vs CPU at {info}: card loss {out['cuda'][0]:.7f} vs "
+    log(f"{name} card vs CPU at {what}: card loss {out['cuda'][0]:.7f} vs "
         f"CPU {out['cpu'][0]:.7f} (|diff| {loss_diff:.3g}, limit {CPU_TOL}); "
         f"gradients against the fp64 witness (worst over the parameter's "
         f"size): " + "; ".join(f"{side} {rel:.3g} ({k}, limit {tol_of(k)})"
@@ -2136,6 +2309,116 @@ def geometric_phase() -> None:
                 if k.endswith("alpha.layers.1.bias") else k))}
     result.update(equiformer_symmetry())
     print(json.dumps({"geometric": result}), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 6c
+# ---------------------------------------------------------------------------
+def full_graph_phase(stack, entry: dict) -> None:
+    """GAT and SAGE full-graph forwards on the serve launcher's graph and
+    its store's features (all rows looked up): SAGE at sage-base widths,
+    its neighbour sums through ``segment_spmm`` on the out-neighbour ELL
+    table (counter zeroed just before the call and read just after:
+    exactly one launch a layer), the kernel held bitwise to its plain
+    version at both calls' inputs and layer 1's call timed beside plain,
+    ``torch.sparse.mm`` and its bound; GAT at 4 heads × 32; both within
+    ``CPU_TOL`` of the port on the CPU with the same weights; times by
+    CUDA events."""
+    import torch
+    from repro_torch.kernels import segment_spmm as sp
+    from repro_torch.kernels.segment_spmm import ops as sp_ops
+    from repro_torch.kernels.segment_spmm.ref import ell_table
+    from repro_torch.models import gnn_basic
+
+    graph, feats = stack[0], stack[1]
+    n = graph.num_nodes
+    dev = torch.device("cuda")
+    src_np, dst_np = graph.to_coo()
+    src = torch.as_tensor(src_np, dtype=torch.int32, device=dev)
+    dst = torch.as_tensor(dst_np, dtype=torch.int32, device=dev)
+    x = stack[4].lookup(torch.arange(n, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    check(torch.equal(x.cpu(), torch.from_numpy(feats)), "the store's rows "
+          "are not the launcher's features")
+    t0 = time.perf_counter()
+    ell = ell_table(dst, src, n)
+    torch.cuda.synchronize()
+    ell_ms = (time.perf_counter() - t0) * 1e3
+    log(f"full graph: {n} nodes, {graph.num_edges} edges; out-neighbour ELL "
+        f"{tuple(ell.shape)} int32 ({ell.numel() * 4 / 1e6:.1f} MB) built "
+        f"in {ell_ms:.1f} ms")
+
+    sage_dims, (gat_dims, heads) = FULL_GRAPH_SAGE, FULL_GRAPH_GAT
+    models = {"sage": gnn_basic.sage_init(torch.Generator().manual_seed(0),
+                                          sage_dims, device=dev),
+              "gat": gnn_basic.gat_init(torch.Generator().manual_seed(0),
+                                        gat_dims, heads=heads, device=dev)}
+    forward = {"sage": gnn_basic.sage_full_graph,
+               "gat": gnn_basic.gat_full_graph}
+    extra = {"sage": {"ell": ell}, "gat": {}}
+    calls = []
+    original = sp_ops.segment_spmm
+
+    def recorder(ids, feat, weights=None):
+        calls.append((ids, feat))
+        return original(ids, feat, weights)
+
+    result = {}
+    with torch.no_grad():
+        for name, model in models.items():
+            sp.LAUNCHES.reset()
+            sp_ops.segment_spmm = recorder
+            try:
+                out = forward[name](model, x, src, dst, num_nodes=n,
+                                    **extra[name])
+                torch.cuda.synchronize()
+            finally:
+                sp_ops.segment_spmm = original
+            launches = sp.LAUNCHES.value
+            want = SAGE_LAYERS if name == "sage" else 0
+            check(launches == want, f"{name}_full_graph launched "
+                  f"segment_spmm {launches} times, not {want}")
+            check(out.shape == (n, sage_dims[-1] if name == "sage"
+                                else gat_dims[-1] * heads)
+                  and bool(torch.isfinite(out).all()),
+                  f"{name} full-graph output {tuple(out.shape)} not finite")
+            cpu_model = (gnn_basic.sage_init(torch.Generator().manual_seed(0),
+                                             sage_dims, device="cpu")
+                         if name == "sage" else
+                         gnn_basic.gat_init(torch.Generator().manual_seed(0),
+                                            gat_dims, heads=heads,
+                                            device="cpu"))
+            cpu_out = forward[name](cpu_model, torch.from_numpy(feats),
+                                    src.cpu(), dst.cpu(), num_nodes=n)
+            diff = float((out.cpu() - cpu_out).abs().max())
+            check(diff <= CPU_TOL, f"{name} full graph card vs CPU max "
+                  f"|diff| {diff:.3g} > {CPU_TOL}")
+            ms = time_ms(lambda m=model, nm=name: forward[nm](
+                m, x, src, dst, num_nodes=n, **extra[nm]), inner=3, reps=5,
+                graph=False)
+            result[name] = {"ms": ms, "launches": launches,
+                            "cpu_max_abs_diff": diff,
+                            "out_shape": list(out.shape)}
+            log(f"{name}_full_graph on the card: {ms:.3f} ms a forward, "
+                f"segment_spmm launches {launches}, card vs CPU max |diff| "
+                f"{diff:.3g} (limit {CPU_TOL})")
+    check(len(calls) == SAGE_LAYERS, f"sage made {len(calls)} segment_spmm "
+          "calls")
+    for layer, (ids, feat) in enumerate(calls, 1):
+        got = sp.segment_spmm(ids, feat)
+        plain = sp.segment_spmm_plain(ids, feat)
+        torch.cuda.synchronize()
+        check(torch.equal(got, plain), "segment_spmm != plain at the SAGE "
+              f"full-graph layer {layer}'s inputs")
+        del got, plain
+    log(f"segment_spmm == plain bitwise at both SAGE full-graph layers' "
+        "inputs")
+    call = spmm_call_row("sage_full_graph layer 1", *calls[0])
+    result["segment_spmm_sage_call"] = call
+    result["ell_ms"] = ell_ms
+    print(json.dumps({"full_graph": result}), flush=True)
+    entry["launches_by_path"]["sage_full_graph"] = result["sage"]["launches"]
+    entry["launches"] += result["sage"]["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -2608,6 +2891,91 @@ def moe_cpu_phase() -> None:
         **report}}), flush=True)
 
 
+def lm_train_phase() -> None:
+    """qwen3-4b ``train_4k`` at its published widths and 36 layers through
+    ``repro_torch.launch.lm --shape train_4k`` (fp32 weights and AdamW
+    state, bf16 activations, B 1, seq 4,096, ``LM_TRAIN_STEPS`` steps),
+    with nothing else on the card: finite losses, step 0 between ln V and
+    ln V + 1.5 (unit-variance logits at init give about ln V + 0.5), the
+    peak under the card's memory, step ms and its stages logged.
+    Then card vs CPU at the smoke reduction (B 2, 64 positions, chunks
+    32): in fp32 every gradient against the fp64 witness
+    (:func:`hold_card_vs_cpu`); in bf16 activations the loss and the
+    gradients against that witness within ``LM_BF16_LOSS_TOL`` and
+    ``LM_BF16_GRAD_TOL`` (in norm)."""
+    import math
+
+    import torch
+    from repro_torch.configs import LM_ARCHS, lm_common
+    from repro_torch.launch import lm as lm_launcher
+    from repro_torch.models import transformer as tf
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"lm train: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        "allocated before the run")
+    report = lm_launcher.main(["--shape", "train_4k", "--device", "cuda",
+                               "--steps", str(LM_TRAIN_STEPS),
+                               "--batch", "1"])
+    vocab = LM_ARCHS["qwen3-4b"].vocab
+    stages = report["stage_ms"]
+    log(f"lm train ({report['arch']}, {report['params']:,} params, "
+        f"{report['dtype']} activations, batch {report['batch']} in "
+        f"{report['micro']} micro-batch(es), seq {report['seq']}): losses "
+        f"{report['losses']} (ln V = {math.log(vocab):.4f}), step ms "
+        f"{[round(x, 1) for x in report['step_ms']]}, stages "
+        f"{[{k: round(v, 1) for k, v in st.items()} for st in stages]}"
+        f", peak {report['peak_bytes'] / 2**30:.2f} GiB of "
+        f"{total / 2**30:.2f}")
+    check(report["params"] == LM_TRAIN_PARAMS and report["seq"] == 4096,
+          f"lm train ran {report['params']:,} params at seq {report['seq']}")
+    check(len(report["losses"]) == LM_TRAIN_STEPS
+          and all(math.isfinite(x) for x in report["losses"])
+          and 0 < report["losses"][0] - math.log(vocab) < 1.5,
+          f"lm train losses {report['losses']} (step 0 should be near "
+          f"ln V = {math.log(vocab):.3f})")
+    check(report["peak_bytes"] < total, f"lm train peak "
+          f"{report['peak_bytes']} B over the card's {total} B")
+    print(json.dumps({"lm_train": report}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = lm_common.smoke_config(LM_ARCHS["qwen3-4b"])
+    gen = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab, (2, 2, 64), generator=gen)
+
+    def run(dev, dtype, act="float32"):
+        model = tf.lm_init(torch.Generator().manual_seed(0), cfg).to(
+            device=dev, dtype=dtype)
+        c = dataclasses.replace(cfg, dtype=act if dtype == torch.float32
+                                else "float64")
+        t = toks.to(dev)
+        return tf.lm_loss(model, t[0], t[1], c,
+                          **lm_common.SMOKE_CHUNKS), model
+
+    fp32 = hold_card_vs_cpu("qwen3-4b train (smoke)", run,
+                            "the smoke reduction, B 2, 64 positions")
+    loss16, model16 = run("cuda", torch.float32, "bfloat16")
+    params = dict(model16.named_parameters())
+    grads = torch.autograd.grad(loss16, list(params.values()))
+    loss64, model64 = run("cpu", torch.float64)
+    p64 = dict(model64.named_parameters())
+    g64 = torch.autograd.grad(loss64, list(p64.values()))
+    loss_diff = abs(float(loss16.detach()) - float(loss64.detach()))
+    num = math.sqrt(sum(float(((a.cpu().double() - b) ** 2).sum())
+                        for a, b in zip(grads, g64)))
+    den = math.sqrt(sum(float((b ** 2).sum()) for b in g64))
+    check(loss_diff <= LM_BF16_LOSS_TOL and num / den <= LM_BF16_GRAD_TOL,
+          f"lm train bf16 card vs fp64 CPU: loss |diff| {loss_diff:.3g} "
+          f"(limit {LM_BF16_LOSS_TOL}), gradients {num / den:.3g} of the "
+          f"norm (limit {LM_BF16_GRAD_TOL})")
+    log(f"lm train card vs CPU, bf16 activations: loss |diff| "
+        f"{loss_diff:.3g} from the fp64 witness (limit {LM_BF16_LOSS_TOL}), "
+        f"gradients {num / den:.3g} of its norm (limit {LM_BF16_GRAD_TOL})")
+    print(json.dumps({"lm_train_card_vs_cpu": {
+        "fp32": fp32, "bf16_loss_diff": loss_diff,
+        "bf16_grad_norm_rel": num / den}}), flush=True)
+
+
 def main() -> None:
     import torch
     t_start = time.perf_counter()
@@ -2669,12 +3037,27 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 5b. din train_batch
+    t0 = time.perf_counter()
+    din_train_phase(entry)
+    log(f"din train phase in {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # 6. train
     entry = segment_spmm_phase()
     gc.collect()
     torch.cuda.empty_cache()
     train_phase(entry)
     results.append(entry)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 6c. GAT and SAGE full graph
+    t0 = time.perf_counter()
+    full_graph_phase(stack, entry)
+    log(f"full graph phase in {time.perf_counter() - t0:.1f} s")
+    del stack
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2708,13 +3091,20 @@ def main() -> None:
     moe_cpu_phase()
     log(f"moe phase in {time.perf_counter() - t0:.1f} s")
     results.append(entry)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7c. qwen3-4b train_4k, with nothing else on the card
+    t0 = time.perf_counter()
+    lm_train_phase()
+    log(f"lm train phase in {time.perf_counter() - t0:.1f} s")
 
     # 8. summary
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("design", "floor_ms", "tflops", "over_bound", "over_library",
-             MOE_KEY)
+             MOE_KEY, "launches_by_path")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
         for r in results]}), flush=True)

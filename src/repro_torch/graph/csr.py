@@ -56,6 +56,14 @@ class CSRGraph:
                         self.out_degree)
         return src, self.indices
 
+    def reverse(self) -> "CSRGraph":
+        """CSC view as a CSR over in-edges (for FAP / in-neighbor passes):
+        the edges reversed, grouped by their old target in edge order, with
+        their weights."""
+        src, dst = self.to_coo()
+        return CSRGraph.from_edge_index(dst, src, self.num_nodes,
+                                        self.edge_weight)
+
     def device_arrays(self, device: str | torch.device = "cuda"
                       ) -> tuple[torch.Tensor, torch.Tensor]:
         """``(indptr, indices)`` as int32 tensors on ``device``."""

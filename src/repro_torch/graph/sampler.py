@@ -10,10 +10,28 @@ hops in both packages.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
 import numpy as np
 import torch
+
+
+@dataclasses.dataclass
+class SampledHops:
+    """Layered (bipartite) sample. ``hops[0]`` are the seeds; ``hops[k]``
+    has shape ``(B·∏_{h<=k} f_h,)`` with -1 padding; ``hops[k]`` entry
+    ``i*f_k + j`` is the j-th sampled neighbor of ``hops[k-1][i]``."""
+
+    hops: list[torch.Tensor]
+    fanouts: tuple[int, ...]
+
+    def all_nodes(self) -> torch.Tensor:
+        return torch.cat([h.reshape(-1) for h in self.hops])
+
+    @property
+    def padded_size(self) -> int:
+        return sum(int(h.numel()) for h in self.hops)
 
 
 def _sample_one_hop(generator: torch.Generator, indptr: torch.Tensor,
@@ -78,6 +96,16 @@ def device_sample(generator: torch.Generator, indptr: torch.Tensor,
     return hops
 
 
+def sample_khop(generator: torch.Generator,
+                graph_dev: tuple[torch.Tensor, torch.Tensor],
+                seeds: torch.Tensor, fanouts: Sequence[int]) -> SampledHops:
+    """:func:`device_sample` over ``graph_dev = (indptr, indices)``, as a
+    :class:`SampledHops`."""
+    indptr, indices = graph_dev
+    hops = device_sample(generator, indptr, indices, seeds, fanouts)
+    return SampledHops(hops=hops, fanouts=tuple(int(f) for f in fanouts))
+
+
 def host_sample(rng: np.random.Generator, graph, seeds: np.ndarray,
                 fanouts: Sequence[int]) -> list[np.ndarray]:
     """Exact k-hop sampling; hop arrays have realized (dynamic) sizes."""
@@ -101,6 +129,12 @@ def host_sample(rng: np.random.Generator, graph, seeds: np.ndarray,
                     else np.empty((0,), dtype=indices.dtype))
         hops.append(frontier.astype(np.int64))
     return hops
+
+
+def realized_size(hops: list[np.ndarray]) -> int:
+    """Entries over all hops of a :func:`host_sample` (its realized
+    neighbor set with repeats, seeds included)."""
+    return int(sum(h.size for h in hops))
 
 
 def host_sample_dense(rng: np.random.Generator, graph, seeds: np.ndarray,

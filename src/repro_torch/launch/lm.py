@@ -1,8 +1,12 @@
-"""LM serving launcher on PyTorch: prefill, then greedy decode.
+"""LM launcher on PyTorch: serving (prefill, then greedy decode) by
+default, or ``--shape train_4k`` training.
 
     PYTHONPATH=src python -m repro_torch.launch.lm [--arch qwen3-4b] \\
         [--batch 1 --prompt-len 32768 --new-tokens 16 --requests 1] \\
         [--seed 0] [--smoke] [--device cuda|cpu]
+    PYTHONPATH=src python -m repro_torch.launch.lm --shape train_4k \\
+        [--arch qwen3-4b] [--steps 3 --batch 1 --micro M] [--seed 0] \\
+        [--smoke] [--device cuda|cpu]
 
 The port's counterpart of the serve cells that the reference lowers in
 ``launch/dryrun.py`` (``configs/lm_common.py``: ``prefill_32k`` and
@@ -28,35 +32,64 @@ cuda`` (default; raises without a card) or ``--device cpu`` — never the
 full model on a CPU. An arch whose bf16 weights alone exceed one 80 GB
 card (phi3.5-moe-42b: 83.75 GB) exits with status 2 unless ``--smoke``:
 it needs its experts sharded over four cards (ROADMAP A13).
+
+``--shape train_4k`` runs ``--steps`` steps of the reference's
+``train_4k`` cell (``configs/lm_common.py::train_step``: ``lm_loss`` under
+autograd, micro-batch accumulation, ``AdamW(lr=3e-4)``) at sequence 4,096
+(``--smoke``: 64, the smoke reduction's attention chunks 32) with fp32
+weights and AdamW state and activations in the config's dtype (bf16 for
+the published configs), drawn by ``lm_init`` from ``--seed``. Each step's
+tokens and targets are drawn uniformly from the same generator. Cuts:
+the batch 256 → ``--batch`` (default 1), split into ``--micro``
+micro-batches (default ``--batch``: one sequence each). The report holds
+the losses (step 0 about ln V + 0.5: unit-variance logits at init), step
+ms and their stages (forward, backward, optimizer) and peak device
+memory. An arch whose fp32 train state (16 bytes a parameter: weights,
+gradients, mu, nu) exceeds one card exits with status 2 unless
+``--smoke`` (codeqwen1.5-7b 131.0 GB, deepseek-moe-16b 270.1 GB,
+phi3.5-moe-42b 670.0 GB): dense training beyond one card needs the
+sharded training of ROADMAP A10b, MoE training the expert sharding of
+A13.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import time
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import LM_ARCHS
-from repro_torch.configs.lm_common import smoke_config
+from repro_torch.configs import LM_ARCHS, lm_common
+from repro_torch.configs.lm_common import SHAPES, smoke_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models.transformer import (LM, init_decode_cache,
                                             lm_active_param_count,
                                             lm_decode_step, lm_init,
                                             lm_param_count, lm_prefill)
+from repro_torch.training import StageTimer
 
 WEIGHT_DTYPE = torch.bfloat16  # serving weights, as the reference's cells
+TRAIN_STATE_BYTES = 16         # fp32 weights, gradients, mu and nu
 CARD_BYTES = 80e9              # one H100's device memory
+SMOKE_TRAIN_SEQ = 64           # --smoke training: two 32-position chunks
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     """The launcher's flags; an unknown flag or arch exits with an error."""
     p = argparse.ArgumentParser(prog="repro_torch.launch.lm")
     p.add_argument("--arch", default="qwen3-4b")
+    p.add_argument("--shape", default="prefill_32k",
+                   choices=["prefill_32k", "train_4k"],
+                   help="prefill_32k: serve (prefill, then decode); "
+                        "train_4k: train")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--batch", type=int, default=1)
+    p.add_argument("--steps", type=int, default=3,
+                   help="train_4k: optimizer steps")
+    p.add_argument("--micro", type=int, default=None,
+                   help="train_4k: micro-batches a step (default --batch)")
     p.add_argument("--prompt-len", type=int, default=32768)
     p.add_argument("--new-tokens", type=int, default=16)
     p.add_argument("--requests", type=int, default=1)
@@ -66,6 +99,23 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     if args.arch not in LM_ARCHS:
         p.exit(2, f"repro_torch.launch.lm: unknown --arch {args.arch}\n")
     n = lm_param_count(LM_ARCHS[args.arch])
+    if args.shape == "train_4k":
+        state = n * TRAIN_STATE_BYTES
+        where = ("the expert sharding of ROADMAP A13" if
+                 LM_ARCHS[args.arch].moe is not None
+                 else "the sharded training of ROADMAP A10b")
+        if not args.smoke and state > CARD_BYTES:
+            p.exit(2, f"repro_torch.launch.lm: --arch {args.arch} has "
+                      f"{n:,} parameters, {state / 1e9:.1f} GB of fp32 "
+                      "train state (weights, gradients, mu, nu) against "
+                      f"one {CARD_BYTES / 1e9:.0f} GB card: training it "
+                      f"needs {where}\n")
+        if args.micro is None:
+            args.micro = args.batch
+        if args.micro < 1 or args.batch % args.micro:
+            p.exit(2, f"repro_torch.launch.lm: --batch {args.batch} does "
+                      f"not split into --micro {args.micro} micro-batches\n")
+        return args
     weight_bytes = n * WEIGHT_DTYPE.itemsize
     if not args.smoke and weight_bytes > CARD_BYTES:
         p.exit(2, f"repro_torch.launch.lm: --arch {args.arch} has {n:,} "
@@ -161,8 +211,63 @@ def serve(args: argparse.Namespace) -> dict:
     return report
 
 
+def train_cell(args: argparse.Namespace
+               ) -> tuple[LM, int, Callable, Callable]:
+    """The ``train_4k`` cell that ``args`` name (module docstring):
+    ``(model, seq, draw() -> batch, step(batch, timer) -> loss)``,
+    ``step`` one ``configs/lm_common.py::train_step`` that keeps the
+    optimizer state between calls."""
+    dev = resolve_device(args.device)
+    cfg = LM_ARCHS[args.arch]
+    seq = SHAPES["train_4k"]["seq"]
+    chunks = None
+    if args.smoke:
+        cfg, seq, chunks = smoke_config(cfg), SMOKE_TRAIN_SEQ, \
+            lm_common.SMOKE_CHUNKS
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    model = lm_init(gen, cfg)                        # fp32 weights
+    opt = lm_common.train_optimizer()
+    state = [opt.init(dict(model.named_parameters()))]
+
+    def draw() -> dict[str, torch.Tensor]:
+        toks = torch.randint(0, cfg.vocab, (2, args.batch, seq),
+                             generator=gen, device=dev)
+        return {"tokens": toks[0], "targets": toks[1]}
+
+    def step(batch: dict[str, torch.Tensor],
+             timer: StageTimer) -> torch.Tensor:
+        state[0], loss = lm_common.train_step(
+            model, opt, state[0], batch, cfg, micro=args.micro,
+            chunks=chunks, timer=timer)
+        return loss
+    return model, seq, draw, step
+
+
+def train(args: argparse.Namespace) -> dict:
+    """``args.steps`` steps of :func:`train_cell`; returns the report."""
+    dev = resolve_device(args.device)
+    model, seq, draw, step = train_cell(args)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, stages = [], []
+    for _ in range(args.steps):
+        batch = draw()
+        timer = StageTimer(dev)
+        losses.append(float(step(batch, timer)))
+        stages.append(timer.ms)
+    return {"arch": args.arch, "smoke": args.smoke, "shape": args.shape,
+            "device": str(dev), "params": lm_param_count(model.cfg),
+            "batch": args.batch, "micro": args.micro, "seq": seq,
+            "steps": args.steps, "dtype": model.cfg.dtype, "losses": losses,
+            "step_ms": [sum(st.values()) for st in stages],
+            "stage_ms": stages,
+            "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                           if dev.type == "cuda" else None)}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
-    report = serve(parse_args(argv))
+    args = parse_args(argv)
+    report = train(args) if args.shape == "train_4k" else serve(args)
     print(json.dumps(report))
     return report
 

@@ -7,6 +7,8 @@ tiered feature store as the GNN features (port of
         --config example
     PYTHONPATH=src python -m repro_torch.launch.recsys_din --config din \\
         --batches 8 --candidates 1000000
+    PYTHONPATH=src python -m repro_torch.launch.recsys_din --config din \\
+        --train-steps 3
 
 Configurations:
 
@@ -26,6 +28,20 @@ the item table served by ``TieredFeatureStore.lookup``; the batch time
 covers the lookups and the forward and ends in a device synchronize.
 ``--candidates N`` then scores N uniform candidates for the first user
 of the first batch with ``din_score_candidates``. Prints one JSON report.
+
+``--train-steps N`` trains instead of serving: N steps of the reference's
+``train_batch`` cell (``configs/din.py::train_step``: ``din_loss``, its
+gradients, ``AdamW(lr=1e-3, weight_decay=0.0)``) at the config's train
+batch, 65,536 for ``din`` (history 100, the 10M-row item table: nothing
+cut) and 256 for ``example``. The item table is a plain parameter on the
+device, as in the reference's cell, not behind the tiered store. Each step
+draws its batch as serving does (Zipf-1.2 items over the same
+popularity, uniform categories, normal dense features, in that order from
+``np.random.default_rng(0)``), then labels ``rng.integers(0, 2, B)``
+(Bernoulli(0.5), as the reference's ``din_smoke`` draws them). The report
+holds the losses, step ms and their stages (forward, backward, optimizer),
+``embedding_bag`` launches and peak device memory.
+
 Runs on ``--device cuda`` (default; raises without a card) or ``cpu``.
 """
 from __future__ import annotations
@@ -41,10 +57,13 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs import din as din_config
 from repro_torch.configs.din import CONFIG, RETRIEVAL_CHUNK, SHAPES
 from repro_torch.core import TieredFeatureStore, TopologySpec, quiver_placement
+from repro_torch.kernels import embedding_bag as eb
 from repro_torch.models.din import (DIN, DINConfig, din_forward, din_init,
                                     din_score_candidates)
+from repro_torch.training import StageTimer
 
 EXAMPLE = DINConfig(n_items=50_000, n_cates=500, embed_dim=18, hist_len=50,
                     n_dense_feat=8)
@@ -58,6 +77,9 @@ SETTINGS = {
         num_pods=1, devices_per_pod=4, rows_per_device=800_000,
         rows_host=4_000_000, hot_replicate_fraction=0.4)),
 }
+
+# requests per train step (the din config's is the train_batch shape's)
+TRAIN_BATCH = {"example": 256, "din": SHAPES["train_batch"]["batch"]}
 
 
 @dataclasses.dataclass
@@ -94,18 +116,27 @@ def build_stack(config: str = "example", *,
     if model is None:
         model = din_init(torch.Generator().manual_seed(0), cfg, device=dev)
     rng = np.random.default_rng(0)
-    # item popularity (the recsys FAP): zipf over items
-    pop = 1.0 / np.power(np.arange(1, cfg.n_items + 1), 1.2)
-    pop = pop[rng.permutation(cfg.n_items)].astype(np.float32)
+    pop = popularity(cfg, rng)
     plan = quiver_placement(pop, topo)
     store = TieredFeatureStore.build(model.item_embed.detach().cpu().numpy(),
                                      plan, device=dev)
     return DinStack(cfg, model, store, batch, rng, pop / pop.sum())
 
 
-def draw_batch(stack: DinStack) -> dict[str, torch.Tensor]:
-    """The next batch of requests, on the store's device."""
-    cfg, b, rng, p = stack.cfg, stack.batch, stack.rng, stack.popularity
+def popularity(cfg: DINConfig, rng: np.random.Generator) -> np.ndarray:
+    """Item popularity (the recsys FAP): Zipf-1.2 over a random
+    permutation of the items, fp32, unnormalised."""
+    pop = 1.0 / np.power(np.arange(1, cfg.n_items + 1), 1.2)
+    return pop[rng.permutation(cfg.n_items)].astype(np.float32)
+
+
+def draw_requests(cfg: DINConfig, b: int, rng: np.random.Generator,
+                  p: np.ndarray, device: torch.device, *,
+                  labels: bool = False) -> dict[str, torch.Tensor]:
+    """``b`` requests drawn from ``rng`` in order: target items and
+    history items by popularity ``p``, categories uniform, dense features
+    normal; with ``labels``, then ``rng.integers(0, 2, b)`` as
+    ``label``."""
     t_len = cfg.hist_len
     draws = dict(
         target_item=rng.choice(cfg.n_items, size=b, p=p),
@@ -113,10 +144,17 @@ def draw_batch(stack: DinStack) -> dict[str, torch.Tensor]:
         hist_items=rng.choice(cfg.n_items, size=(b, t_len), p=p),
         hist_cates=rng.integers(0, cfg.n_cates, (b, t_len)),
         dense_feat=rng.normal(size=(b, cfg.n_dense_feat)))
-    dev = stack.store.device
+    if labels:
+        draws["label"] = rng.integers(0, 2, b)
     return {k: torch.as_tensor(v.astype(np.float32 if k == "dense_feat"
-                                        else np.int32), device=dev)
+                                        else np.int32), device=device)
             for k, v in draws.items()}
+
+
+def draw_batch(stack: DinStack) -> dict[str, torch.Tensor]:
+    """The next batch of requests, on the store's device."""
+    return draw_requests(stack.cfg, stack.batch, stack.rng,
+                         stack.popularity, stack.store.device)
 
 
 def item_lookup(store: TieredFeatureStore) -> Callable:
@@ -198,6 +236,59 @@ def score_candidates(stack: DinStack, user: dict[str, torch.Tensor], n: int,
     return Retrieval(items, cates, scores, (time.perf_counter() - t0) * 1e3)
 
 
+def train_cell(config: str, *, device: str | torch.device = "cuda"
+               ) -> tuple[DIN, Callable, Callable]:
+    """The ``train_batch`` cell at ``TRAIN_BATCH[config]`` (module
+    docstring): ``(model, draw() -> batch, step(batch, timer) -> loss)``,
+    ``step`` one ``configs/din.py::train_step`` that keeps the optimizer
+    state between calls."""
+    cfg = SETTINGS[config][0]
+    b = TRAIN_BATCH[config]
+    dev = resolve_device(device)
+    model = din_init(torch.Generator().manual_seed(0), cfg, device=dev)
+    rng = np.random.default_rng(0)
+    p = popularity(cfg, rng)
+    p = p / p.sum()
+    opt = din_config.train_optimizer()
+    state = [opt.init(dict(model.named_parameters()))]
+
+    def draw() -> dict[str, torch.Tensor]:
+        return draw_requests(cfg, b, rng, p, dev, labels=True)
+
+    def step(batch: dict[str, torch.Tensor],
+             timer: StageTimer) -> torch.Tensor:
+        state[0], loss = din_config.train_step(model, opt, state[0], batch,
+                                               cfg, timer=timer)
+        return loss
+    return model, draw, step
+
+
+def train(config: str, steps: int, *,
+          device: str | torch.device = "cuda") -> dict:
+    """``steps`` steps of :func:`train_cell`; returns the report."""
+    cfg = SETTINGS[config][0]
+    dev = resolve_device(device)
+    model, draw, step = train_cell(config, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    launches0 = eb.LAUNCHES.value
+    losses, step_ms, stages = [], [], []
+    for _ in range(steps):
+        batch = draw()
+        timer = StageTimer(dev)
+        losses.append(float(step(batch, timer)))
+        step_ms.append(sum(timer.ms.values()))
+        stages.append(timer.ms)
+    return {"config": config, "device": str(dev), "items": cfg.n_items,
+            "batch": TRAIN_BATCH[config], "hist_len": cfg.hist_len,
+            "steps": steps,
+            "params": sum(x.numel() for x in model.parameters()),
+            "losses": losses, "step_ms": step_ms, "stage_ms": stages,
+            "embedding_bag_launches": eb.LAUNCHES.value - launches0,
+            "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                           if dev.type == "cuda" else None)}
+
+
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     """The launcher's flags; an unknown flag exits with an error."""
     p = argparse.ArgumentParser(prog="repro_torch.launch.recsys_din")
@@ -206,11 +297,18 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--batches", type=int, default=1)
     p.add_argument("--candidates", type=int, default=0,
                    help="score this many candidates for one user (0: skip)")
+    p.add_argument("--train-steps", type=int, default=0,
+                   help="train this many train_batch steps instead of "
+                        "serving (0: serve)")
     return p.parse_args(argv)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = parse_args(argv)
+    if args.train_steps:
+        report = train(args.config, args.train_steps, device=args.device)
+        print(json.dumps(report))
+        return report
     stack = build_stack(args.config, device=args.device)
     report, served, logits = serve(stack, args.batches)
     report["config"] = args.config

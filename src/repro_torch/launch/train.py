@@ -19,8 +19,10 @@ kernel, forward and backward; the geometric models' message sums are
 --classes 47`` is the ``ogb_products`` shape.
 
 Runs on ``--device cuda`` (default; raises without a card) or ``--device
-cpu``. An architecture that is not a GNN (``qwen3-4b``, ``din``, ...)
-exits 2, where the reference asserts; so does an unknown name.
+cpu``. An architecture that is not a GNN exits 2, where the reference
+asserts; so does an unknown name. The LMs train through
+``repro_torch.launch.lm --shape train_4k`` and DIN through
+``repro_torch.launch.recsys_din --train-steps N``.
 """
 from __future__ import annotations
 
@@ -65,7 +67,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     if arch.family != "gnn":
         p.exit(2, f"repro_torch.launch.train: --arch {args.arch} is not a "
                   f"GNN (family {arch.family}); the train launcher drives "
-                  f"{', '.join(sorted(ADAPTERS))}\n")
+                  f"{', '.join(sorted(ADAPTERS))} (LMs train through "
+                  "repro_torch.launch.lm --shape train_4k, DIN through "
+                  "repro_torch.launch.recsys_din --train-steps N)\n")
     return args
 
 

@@ -99,6 +99,12 @@ def count_params(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
+def param_bytes(model: nn.Module) -> int:
+    """Bytes of the parameters in their own dtypes (the reference's
+    ``param_bytes``)."""
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
 def linspace(start: float, stop: float, num: int, *,
              device: str | torch.device = "cpu") -> torch.Tensor:
     """float32 ``jnp.linspace(start, stop, num)`` with the bits XLA gives

@@ -1,4 +1,5 @@
-"""Deep Interest Network (arXiv:1706.06978), the serving forward.
+"""Deep Interest Network (arXiv:1706.06978): the serving forward and the
+training loss.
 
 Port of ``src/repro/models/din.py``: embed_dim 18, history length 100,
 attention MLP 80-40 (sigmoid), main MLP 200-80 (silu), target attention.
@@ -9,7 +10,14 @@ Both reductions over the user history — the attention-weighted interest
 sum and the masked history mean — are one ``embedding_bag`` kernel launch
 each: the gathered history ``(B, T, 2d)`` is viewed as a ``(B·T, 2d)``
 table and bag ``b`` holds ids ``b·T + t`` for its valid slots (``-1``
-elsewhere). Serving only: ``din_loss`` and a backward come with training.
+elsewhere). The bags go through the ``embedding_bag`` autograd Function
+(:func:`~repro_torch.kernels.embedding_bag.ops.embedding_bag_autograd`):
+the forward launches the kernel, and the backward gives the history rows
+and the attention scores their gradients, so :func:`din_loss` trains
+through the same two launches a batch that serving makes.
+
+:func:`din_logits` is the differentiable forward; :func:`din_forward`
+(serving) is it under ``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -39,13 +47,15 @@ class DINConfig:
 
 class DIN(nn.Module):
     """Item and category tables, attention MLP (sigmoid) and main MLP
-    (silu); both MLPs end in one un-squashed unit."""
+    (silu); both MLPs end in one un-squashed unit. The tables are
+    parameters like the rest (the reference's train cell updates them);
+    serving reads them under ``torch.no_grad``."""
 
     def __init__(self, item_embed: torch.Tensor, cate_embed: torch.Tensor,
                  attn: nn.Module, mlp: nn.Module):
         super().__init__()
-        self.item_embed = nn.Parameter(item_embed, requires_grad=False)
-        self.cate_embed = nn.Parameter(cate_embed, requires_grad=False)
+        self.item_embed = nn.Parameter(item_embed)
+        self.cate_embed = nn.Parameter(cate_embed)
         self.attn = attn
         self.mlp = mlp
 
@@ -108,25 +118,31 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
 def _embed_pair(model: DIN, item_ids: torch.Tensor, cate_ids: torch.Tensor,
                 lookup: Optional[Callable] = None) -> torch.Tensor:
     """item ⊕ category embedding; ``lookup`` overrides the item-table
-    gather (where the tiered feature store plugs in)."""
+    gather (where the tiered feature store plugs in).
+
+    The tables are read by ``F.embedding``: the same rows as indexing,
+    and in training its backward sums a row's many slots (a Zipf-hot
+    item is ~1/6 of a batch's history) in parallel segments, where
+    indexing's accumulating ``index_put_`` adds them one after another
+    (PERF.md, §5)."""
     if lookup is not None:
         it = lookup(item_ids)
     else:
-        it = model.item_embed[item_ids.long().clamp_min(0)]
+        it = F.embedding(item_ids.long().clamp_min(0), model.item_embed)
         it = torch.where((item_ids >= 0)[..., None], it, 0.0)
-    ct = model.cate_embed[cate_ids.long().clamp_min(0)]
+    ct = F.embedding(cate_ids.long().clamp_min(0), model.cate_embed)
     ct = torch.where((cate_ids >= 0)[..., None], ct, 0.0)
     return torch.cat([it, ct], dim=-1)
 
 
-@torch.no_grad()
-def din_forward(model: DIN, cfg: DINConfig, target_item: torch.Tensor,
-                target_cate: torch.Tensor, hist_items: torch.Tensor,
-                hist_cates: torch.Tensor, dense_feat: torch.Tensor, *,
-                item_lookup: Optional[Callable] = None) -> torch.Tensor:
+def din_logits(model: DIN, cfg: DINConfig, target_item: torch.Tensor,
+               target_cate: torch.Tensor, hist_items: torch.Tensor,
+               hist_cates: torch.Tensor, dense_feat: torch.Tensor, *,
+               item_lookup: Optional[Callable] = None) -> torch.Tensor:
     """target_*: ``(B,)``; hist_*: ``(B, T)`` with ``-1`` padding; dense:
-    ``(B, F)`` → ``(B,)`` CTR logits. ``cfg`` is kept for the reference's
-    signature; the widths come from ``model``."""
+    ``(B, F)`` → ``(B,)`` CTR logits, differentiable in every parameter.
+    ``cfg`` is kept for the reference's signature; the widths come from
+    ``model``."""
     tgt = _embed_pair(model, target_item, target_cate, item_lookup)  # (B,de)
     hist = _embed_pair(model, hist_items, hist_cates, item_lookup)   # (B,T,de)
     mask = hist_items >= 0
@@ -142,12 +158,39 @@ def din_forward(model: DIN, cfg: DINConfig, target_item: torch.Tensor,
     slots = torch.arange(bsz * t_len, dtype=torch.int32,
                          device=hist.device).reshape(bsz, t_len)
     ids = torch.where(mask, slots, -1)
-    interest = bag_ops.embedding_bag(table, ids, scores.to(table.dtype),
-                                     mode="sum")                     # (B, de)
-    hist_mean = bag_ops.embedding_bag(table, ids, None, mode="mean")
+    interest = bag_ops.embedding_bag_autograd(
+        table, ids, scores.to(table.dtype), mode="sum")              # (B, de)
+    hist_mean = bag_ops.embedding_bag_autograd(table, ids, None, mode="mean")
 
     x = torch.cat([interest, tgt, hist_mean, dense_feat], dim=-1)
     return model.mlp(x)[..., 0]
+
+
+@torch.no_grad()
+def din_forward(model: DIN, cfg: DINConfig, target_item: torch.Tensor,
+                target_cate: torch.Tensor, hist_items: torch.Tensor,
+                hist_cates: torch.Tensor, dense_feat: torch.Tensor, *,
+                item_lookup: Optional[Callable] = None) -> torch.Tensor:
+    """Serving: :func:`din_logits` under ``torch.no_grad``."""
+    return din_logits(model, cfg, target_item, target_cate, hist_items,
+                      hist_cates, dense_feat, item_lookup=item_lookup)
+
+
+def din_loss(model: DIN, cfg: DINConfig, batch: dict,
+             item_lookup: Optional[Callable] = None) -> torch.Tensor:
+    """The reference's ``din_loss``: the mean over the batch of the
+    logistic loss ``max(z, 0) - z·y + log1p(exp(-|z|))`` in fp32, ``z``
+    the :func:`din_logits` of ``batch`` (``target_item``,
+    ``target_cate``, ``hist_items``, ``hist_cates``, ``dense_feat``) and
+    ``y`` its ``label``."""
+    logits = din_logits(model, cfg, batch["target_item"],
+                        batch["target_cate"], batch["hist_items"],
+                        batch["hist_cates"], batch["dense_feat"],
+                        item_lookup=item_lookup)
+    y = batch["label"].float()
+    z = logits.float()
+    return torch.mean(torch.clamp_min(z, 0) - z * y
+                      + torch.log1p(torch.exp(-z.abs())))
 
 
 @torch.no_grad()

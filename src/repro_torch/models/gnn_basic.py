@@ -1,4 +1,5 @@
-"""GraphSAGE (mean aggregator), the served model, in its layered form; and
+"""GraphSAGE (mean aggregator), the served model, in its layered and
+full-graph forms; GAT (4 heads, the paper's second model), full-graph; and
 GIN (``gin-tu``: sum aggregation, learnable ε), trained full-graph.
 
 SAGE: ``hop_feats[k]`` has shape ``(B·∏_{h≤k} f_h, d)``; layer ℓ is applied
@@ -8,6 +9,21 @@ fan_sum` — fp32, one child at a time, in order — the same order as the
 ``gather_aggregate`` kernel, so the fused path (``deep_agg`` from
 ``TieredFeatureStore.lookup_aggregate``) and the unfused one give the same
 bits on the CPU and on the card.
+
+SAGE full-graph: each layer's mean over a node's OUT-neighbours (the
+reference's ``scatter_spmm(h, dst, src, N)``) is the ``segment_spmm``
+kernel over the ELL table of out-neighbours (row ``s`` lists the targets
+of ``s``'s edges in edge order), divided by ``max(deg, 1)``. That table's
+width is the largest out-degree: 5,003 on the serve launcher's
+``power_law_graph(20000, 12)``, a 400 MB int32 table, where the
+in-neighbour orientation would be 105,387 wide (8.4 GB). Its gradient,
+needed only in training, is the kernel over the transposed table, built on
+first use.
+
+GAT keeps the reference's torch-op form: per-edge scores, an edge softmax
+(:func:`~repro_torch.graph.segment.segment_softmax`, ``-inf`` on padded
+edges) and a :func:`~repro_torch.graph.segment.segment_sum` of the
+messages (``index_add_``, atomics on the card).
 
 GIN: every layer's neighbor sum is the ``segment_spmm`` kernel over the
 ELL table of the edge list (built once per call on the edges' device), and
@@ -19,14 +35,16 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import resolve_device
-from repro_torch.graph.segment import segment_sum
+from repro_torch.graph.segment import segment_softmax, segment_sum
 from repro_torch.kernels.gather_aggregate.ref import fan_sum
 from repro_torch.kernels.segment_spmm.ops import segment_spmm_autograd
-from repro_torch.kernels.segment_spmm.ref import ell_pair
+from repro_torch.kernels.segment_spmm.ref import ell_pair, ell_table
 from repro_torch.models.common import (dense_from_numpy, dense_init,
                                        layer_norm_from_numpy, layer_norm_init)
 
@@ -129,6 +147,120 @@ def sage_layered(model: SAGE, hop_feats: Sequence[torch.Tensor],
                                              final=layer == L - 1))
         h = new_h
     return h[0]
+
+
+def sage_full_graph(model: SAGE, x: torch.Tensor, src: torch.Tensor,
+                    dst: torch.Tensor, *, num_nodes: int,
+                    ell: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-graph GraphSAGE: each layer's neighbour mean is the sum over a
+    node's out-neighbours (one ``segment_spmm`` launch a layer on a CUDA
+    tensor) divided by ``max(deg, 1)``, ``deg`` counted as the reference
+    does (``segment_sum`` of ones over ``max(src, 0)``). ``ell``: the
+    out-neighbour table ``ell_table(dst, src, num_nodes)`` when the caller
+    built it already. Returns ``(N, d_out)``."""
+    if ell is None:
+        ell = ell_table(dst, src, num_nodes)
+    ones = torch.ones(src.shape, dtype=x.dtype, device=x.device)
+    deg = segment_sum(ones, src.clamp_min(0), num_nodes)
+    h = x
+    L = len(model.layers)
+    for i, layer in enumerate(model.layers):
+        agg = segment_spmm_autograd(ell, h)
+        agg = agg / deg.clamp_min(1.0)[:, None]
+        h = layer(h, agg, final=i == L - 1)
+    return h
+
+
+# ---------------------------------------------------------------------------
+# GAT (4 heads, the paper's second model)
+# ---------------------------------------------------------------------------
+class GATLayer(nn.Module):
+    """``proj`` (no bias) to ``heads·d_out``, per-head attention vectors
+    ``attn_src``/``attn_dst`` ``(heads, d_out)`` and the LayerNorm ``ln``
+    over the concatenated heads."""
+
+    def __init__(self, proj: nn.Linear, attn_src: torch.Tensor,
+                 attn_dst: torch.Tensor, ln: nn.LayerNorm):
+        super().__init__()
+        self.proj = proj
+        self.attn_src = nn.Parameter(attn_src)
+        self.attn_dst = nn.Parameter(attn_dst)
+        self.ln = ln
+
+
+class GAT(nn.Module):
+    """GAT layers; ``heads`` heads concatenate between layers."""
+
+    def __init__(self, layers: Sequence[GATLayer], heads: int):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+        self.heads = heads
+
+    def forward(self, x, src, dst, *, num_nodes):
+        return gat_full_graph(self, x, src, dst, num_nodes=num_nodes)
+
+
+def gat_init(generator: torch.Generator, dims: Sequence[int], *,
+             heads: int = 4, device: str | torch.device = "cuda") -> GAT:
+    """``dims = [d_in, h1, ..., h_L]``: layer i projects ``dims[i]``
+    (``dims[i]·heads`` after the first layer) to ``heads·dims[i+1]``
+    (weights ``N(0, 1/d_in)``), attention vectors ``N(0, 0.1²)``; drawn on
+    the CPU from ``generator`` layer by layer (proj, attn_src, attn_dst),
+    then moved to ``device``."""
+    layers = []
+    for i in range(len(dims) - 1):
+        d_out = dims[i + 1]
+        d_in = dims[i] if i == 0 else dims[i] * heads
+        proj = dense_init(generator, d_in, heads * d_out, bias=False)
+        a_src = torch.randn((heads, d_out), generator=generator) * 0.1
+        a_dst = torch.randn((heads, d_out), generator=generator) * 0.1
+        layers.append(GATLayer(proj, a_src, a_dst,
+                               layer_norm_init(heads * d_out)))
+    return GAT(layers, heads).to(resolve_device(device))
+
+
+def gat_from_numpy(params_np: dict, device: str | torch.device = "cuda"
+                   ) -> GAT:
+    """Carry the reference's ``gat_init`` tree, as numpy arrays
+    (``{"layers": [{"proj": {w}, "attn_src", "attn_dst", "ln": {g, b}}],
+    "heads"}``), into a :class:`GAT` on ``device``."""
+    layers = [GATLayer(dense_from_numpy(p["proj"]),
+                       torch.tensor(np.asarray(p["attn_src"], np.float32)),
+                       torch.tensor(np.asarray(p["attn_dst"], np.float32)),
+                       layer_norm_from_numpy(p["ln"]))
+              for p in params_np["layers"]]
+    return GAT(layers, int(params_np["heads"])).to(resolve_device(device))
+
+
+def gat_full_graph(model: GAT, x: torch.Tensor, src: torch.Tensor,
+                   dst: torch.Tensor, *, num_nodes: int) -> torch.Tensor:
+    """Full-graph GAT, the reference's arithmetic: per edge ``e = leaky_
+    relu(z[src]·a_src + z[dst]·a_dst, 0.2)`` per head, ``-inf`` where
+    ``src < 0``; softmax over each target's edges; messages ``z[src]·α``
+    (zero on padded edges) summed into their targets; LayerNorm, and ELU
+    between layers. Returns ``(N, heads·d_out)``."""
+    heads = model.heads
+    s = src.long().clamp_min(0)
+    d = dst.long().clamp_min(0)
+    valid = src >= 0
+    h = x
+    L = len(model.layers)
+    for i, layer in enumerate(model.layers):
+        d_out = layer.attn_src.shape[1]
+        z = layer.proj(h).reshape(num_nodes, heads, d_out)
+        zs = z[s]
+        e = ((zs * layer.attn_src).sum(-1)
+             + (z[d] * layer.attn_dst).sum(-1))              # (E, heads)
+        e = F.leaky_relu(e, 0.2)
+        e = torch.where(valid[:, None], e, float("-inf"))
+        alpha = segment_softmax(e, d, num_nodes)              # (E, heads)
+        msg = zs * alpha[..., None]                           # (E, heads, d)
+        msg = torch.where(valid[:, None, None], msg, 0.0)
+        agg = segment_sum(msg.reshape(msg.shape[0], -1), d, num_nodes)
+        h = layer.ln(agg)
+        if i < L - 1:
+            h = F.elu(h)
+    return h
 
 
 # ---------------------------------------------------------------------------

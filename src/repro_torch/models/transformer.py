@@ -1,6 +1,6 @@
-"""Decoder-only LM serving on PyTorch: GQA + RoPE (+ optional QKV bias /
-qk-norm), SwiGLU or MoE FFN, RMSNorm — ``src/repro/models/transformer.py``,
-prefill then decode.
+"""Decoder-only LM on PyTorch: GQA + RoPE (+ optional QKV bias / qk-norm),
+SwiGLU or MoE FFN, RMSNorm — ``src/repro/models/transformer.py``: serving
+(prefill then decode) and training (``lm_forward``, ``lm_loss``).
 
 Covers the LM configurations of the reference:
   qwen1.5-4b / codeqwen1.5-7b  — QKV bias, MHA-style GQA (kv == heads)
@@ -9,9 +9,7 @@ Covers the LM configurations of the reference:
   phi3.5-moe-42b               — MoE (16 experts top-2), GQA kv=8
 With ``cfg.moe`` set, each layer's FFN is a :class:`~repro_torch.models.
 moe.MoE` over the layer's ``B·S`` tokens, and each call's router stats
-stay readable as that module's ``last_stats``. Training
-(``lm_forward``/``lm_loss``) waits for a backward of the attention kernel
-(ROADMAP A11).
+stay readable as that module's ``last_stats``.
 
 Layout is the reference's: weights are ``(d_in, d_out)`` and applied as
 ``x @ w``, cast to the activation dtype; the cache is ``(L, B, S, KV,
@@ -20,6 +18,20 @@ kernel, one launch per layer, where the reference calls
 ``blockwise_attention``. A layer is a Python loop over :class:`LMBlock`
 modules, not a ``scan``. Serving runs under ``torch.no_grad``, and the
 decode step writes the new position into the cache in place.
+
+Training is the reference's arithmetic with its memory discipline kept on
+one card: :func:`lm_forward` runs each layer under ``torch.utils.
+checkpoint`` (the reference's ``nothing_saveable`` remat: only each
+layer's input is kept, and the layer is recomputed in the backward), its
+attention is :func:`~repro_torch.models.attention.blockwise_attention`
+(recomputing backward, not the serving kernel); :func:`lm_loss` takes the
+logits in the activation dtype, then fp32, then log-sum-exp minus the
+target logit, per position, in chunks of ``LOSS_CHUNK`` positions whose
+logits are recomputed in the backward (:class:`ChunkedCrossEntropy`), so
+the full ``(B·S, V)`` fp32 logits and their gradient (7.5 GB at qwen3-4b's
+4,096 positions) are never resident at once. The embedding rows are
+gathered from the fp32 table and then cast (the reference casts the table,
+then gathers: the same values, and the gradient is summed in fp32).
 """
 from __future__ import annotations
 
@@ -31,22 +43,28 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.models.attention import (apply_rope, decode_attention,
-                                          rope_angles)
+from repro_torch.models.attention import (apply_rope, blockwise_attention,
+                                          decode_attention, rope_angles)
 from repro_torch.models.common import RMSNorm, rms_norm
 from repro_torch.models.moe import MoE, MoEConfig, init_moe_, load_moe_
 
 CACHE_DTYPE = torch.bfloat16  # the reference stores the KV cache in bf16
+# blockwise_attention's chunks in training: the reference LMConfig's
+# defaults (its smoke reduction uses 32 and 32: lm_common.SMOKE_CHUNKS)
+Q_CHUNK, KV_CHUNK = 512, 1024
+LOSS_CHUNK = 512   # positions a cross-entropy chunk (its logits recomputed)
 
 
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
     """The reference's ``LMConfig``. Its ``q_chunk``/``kv_chunk`` tile
-    ``blockwise_attention``; the port's kernel has fixed tiles, so they are
-    not carried."""
+    ``blockwise_attention``; serving's kernel has fixed tiles, so they are
+    not carried, and training takes them as arguments (``Q_CHUNK``,
+    ``KV_CHUNK`` by default)."""
     vocab: int
     d_model: int
     n_layers: int
@@ -136,6 +154,22 @@ class LMBlock(nn.Module):
         g = F.silu(x @ self.w1.to(x.dtype))
         u = x @ self.w3.to(x.dtype)
         return h + (g * u) @ self.w2.to(x.dtype)
+
+    def train_forward(self, h: torch.Tensor, cos: torch.Tensor,
+                      sin: torch.Tensor, q_chunk: int, kv_chunk: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+        """One layer of :func:`lm_forward`: causal
+        :func:`~repro_torch.models.attention.blockwise_attention`, then the
+        FFN. Returns the new residual stream and the layer's aux loss
+        (the MoE router's, else 0), fp32."""
+        q, k, v = self.qkv(h, cos, sin)
+        h = self.out(h, blockwise_attention(q, k, v, causal=True,
+                                            q_chunk=q_chunk,
+                                            kv_chunk=kv_chunk))
+        h = self.ffn(h)
+        aux = (self.moe.last_stats["aux_loss"] if self.cfg.moe is not None
+               else torch.zeros((), dtype=torch.float32, device=h.device))
+        return h, aux
 
 
 class LM(nn.Module):
@@ -239,6 +273,88 @@ def _logits(model: LM, h_last: torch.Tensor) -> torch.Tensor:
     and keeps the last; the norm is per position)."""
     x = rms_norm(h_last, model.final_ln.weight)
     return (x @ model.unembed.to(x.dtype)).float()
+
+
+def lm_forward(model: LM, tokens: torch.Tensor, cfg: LMConfig, *,
+               q_chunk: int = Q_CHUNK, kv_chunk: int = KV_CHUNK
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens ``(B, S)`` → (the final-normed hidden state ``(B, S, d)`` in
+    the activation dtype, the aux loss summed over layers, fp32). Each
+    layer runs under ``torch.utils.checkpoint`` when a gradient is
+    recorded: its input is kept and the layer recomputed in the backward,
+    as the reference's ``nothing_saveable`` remat."""
+    b, s = tokens.shape
+    h = model.embed[tokens].to(cfg.adtype)
+    cos, sin = _rope(torch.arange(s, device=tokens.device), cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    remat = torch.is_grad_enabled()
+    for blk in model.layers:
+        if remat:
+            h, a = checkpoint(blk.train_forward, h, cos, sin, q_chunk,
+                              kv_chunk, use_reentrant=False)
+        else:
+            h, a = blk.train_forward(h, cos, sin, q_chunk, kv_chunk)
+        aux = aux + a
+    return model.final_ln(h), aux
+
+
+class ChunkedCrossEntropy(torch.autograd.Function):
+    """Per-position ``logsumexp(l) - l[target]`` over ``l = (h @
+    U).float()``, ``U`` cast to h's dtype (the reference's ``lm_loss``
+    rows), ``chunk`` positions at a time. The forward keeps h, the
+    targets and each row's log-sum-exp; the backward recomputes each
+    chunk's logits, takes ``softmax - onehot`` scaled by the incoming
+    gradient, casts it to h's dtype (the gradient of the fp32 cast), and
+    forms that chunk's ``dh`` and its term of ``dU``, added into an fp32
+    gradient of the fp32 ``U``."""
+
+    @staticmethod
+    def forward(ctx, h, unembed, targets, chunk):
+        u = unembed.to(h.dtype)
+        n = h.shape[0]
+        nll = h.new_empty((n,), dtype=torch.float32)
+        lse = torch.empty_like(nll)
+        for r in range(0, n, chunk):
+            logits = (h[r:r + chunk] @ u).float()
+            lse[r:r + chunk] = torch.logsumexp(logits, -1)
+            tgt = logits.gather(1, targets[r:r + chunk, None])[:, 0]
+            nll[r:r + chunk] = lse[r:r + chunk] - tgt
+        ctx.save_for_backward(h, unembed, targets, lse)
+        ctx.chunk = chunk
+        return nll
+
+    @staticmethod
+    def backward(ctx, grad_nll):
+        h, unembed, targets, lse = ctx.saved_tensors
+        u = unembed.to(h.dtype)
+        dh = torch.empty_like(h)
+        du = torch.zeros_like(unembed, dtype=torch.float32)
+        for r in range(0, h.shape[0], ctx.chunk):
+            rows = slice(r, r + ctx.chunk)
+            g = grad_nll[rows, None]
+            # softmax · g, in place on the recomputed fp32 logits
+            dl = (h[rows] @ u).float().sub_(lse[rows, None]).exp_().mul_(g)
+            dl.scatter_add_(1, targets[rows, None], -g)
+            dl = dl.to(h.dtype)
+            dh[rows] = dl @ u.t()
+            du += (h[rows].t() @ dl).float()
+        return dh, du.to(unembed.dtype), None, None
+
+
+def lm_loss(model: LM, tokens: torch.Tensor, targets: torch.Tensor,
+            cfg: LMConfig, *, q_chunk: int = Q_CHUNK,
+            kv_chunk: int = KV_CHUNK, chunk: int = LOSS_CHUNK
+            ) -> torch.Tensor:
+    """The reference's ``lm_loss``: mean over ``(B, S)`` of the cross
+    entropy of ``h @ unembed`` (in the activation dtype, then fp32) at
+    ``targets``, plus the aux loss; the cross entropy in chunks of
+    ``chunk`` positions (:class:`ChunkedCrossEntropy`)."""
+    h, aux = lm_forward(model, tokens, cfg, q_chunk=q_chunk,
+                        kv_chunk=kv_chunk)
+    d = h.shape[-1]
+    nll = ChunkedCrossEntropy.apply(h.reshape(-1, d), model.unembed,
+                                    targets.reshape(-1).long(), chunk)
+    return nll.mean() + aux
 
 
 @torch.no_grad()

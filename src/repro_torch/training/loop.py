@@ -23,6 +23,31 @@ from repro_torch.training.checkpoint import CheckpointManager
 from repro_torch.training.optimizer import AdamW, AdamWState
 
 
+class StageTimer:
+    """Milliseconds per named stage of a step on the host clock, each
+    stage ended by a device synchronize (so the device's work is inside
+    it). ``start()`` opens a step; ``lap(name)`` closes the running stage
+    and adds it to ``ms[name]``."""
+
+    def __init__(self, device: torch.device):
+        self.device = torch.device(device)
+        self.ms: dict[str, float] = {}
+        self._t = 0.0
+
+    def _now(self) -> float:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    def start(self) -> None:
+        self._t = self._now()
+
+    def lap(self, name: str) -> None:
+        now = self._now()
+        self.ms[name] = self.ms.get(name, 0.0) + (now - self._t) * 1e3
+        self._t = now
+
+
 @dataclasses.dataclass
 class TrainState:
     model: nn.Module

@@ -780,3 +780,85 @@ def test_launcher_trains_geometric_on_card(card, arch, tmp_path):
     resumed = launcher.main(argv + ["--steps", "3"] + ck)
     assert resumed["step"] == 3 and len(resumed["losses"]) == 1
     assert abs(resumed["losses"][0] - whole["losses"][2]) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_bag_backward_on_card_matches_cpu(card, mode):
+    """The ``embedding_bag`` autograd Function on the card (the kernel's
+    forward, the torch-op backward) against the CPU (plain forward, the
+    same backward): the forward bitwise, both gradients within 1e-5 of
+    their largest entry (the table's gradient adds repeated rows with
+    atomics on the card), with hot repeated ids and padding."""
+    gen = torch.Generator().manual_seed(0)
+    table = torch.randn(50, 36, generator=gen)
+    ids = torch.randint(-1, 50, (64, 100), generator=gen, dtype=torch.int32)
+    ids[:, ::7] = 3                                  # a hot row
+    w = torch.randn(64, 100, generator=gen)
+    g = torch.randn(64, 36, generator=gen)
+    res = {}
+    for dev in (card, torch.device("cpu")):
+        t = table.to(dev).requires_grad_()
+        ww = w.to(dev).requires_grad_()
+        before = eb_pkg.LAUNCHES.value
+        out = eb_ops.embedding_bag_autograd(t, ids.to(dev), ww, mode=mode)
+        gt, gw = torch.autograd.grad(out, (t, ww), g.to(dev))
+        res[dev.type] = (out.detach().cpu(), gt.cpu(), gw.cpu(),
+                         eb_pkg.LAUNCHES.value - before)
+    (o1, t1, w1, n1), (o2, t2, w2, n2) = res["cuda"], res["cpu"]
+    assert (n1, n2) == (1, 0)
+    assert torch.equal(o1, o2)
+    for a, b in ((t1, t2), (w1, w2)):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_sage_full_graph_through_segment_spmm_on_card(card):
+    """``sage_full_graph`` on the card launches ``segment_spmm`` once a
+    layer, and its neighbour sums equal the port's ``scatter_spmm(h, dst,
+    src, N)`` within 1e-5 of their size; the output is within 1e-4 of the
+    CPU port's."""
+    from repro_torch.graph import power_law_graph
+    from repro_torch.graph.segment import scatter_spmm
+    from repro_torch.models import gnn_basic
+    g = power_law_graph(3000, 12, seed=0)
+    src, dst = (torch.as_tensor(a.astype(np.int32)) for a in g.to_coo())
+    x = torch.randn(3000, 64, generator=torch.Generator().manual_seed(1))
+    ell = sp_ref.ell_table(dst.to(card), src.to(card), 3000)
+    before = sp_pkg.LAUNCHES.value
+    agg = sp_ops.segment_spmm(ell, x.to(card))
+    want = scatter_spmm(x.to(card), dst.to(card), src.to(card), 3000)
+    assert sp_pkg.LAUNCHES.value - before == 1
+    assert float((agg - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+    model = gnn_basic.sage_init(torch.Generator().manual_seed(0),
+                                [64, 64, 64], device=card)
+    cpu_model = gnn_basic.sage_init(torch.Generator().manual_seed(0),
+                                    [64, 64, 64], device="cpu")
+    before = sp_pkg.LAUNCHES.value
+    with torch.no_grad():
+        out = gnn_basic.sage_full_graph(model, x.to(card), src.to(card),
+                                        dst.to(card), num_nodes=3000)
+        ref_out = gnn_basic.sage_full_graph(cpu_model, x, src, dst,
+                                            num_nodes=3000)
+    assert sp_pkg.LAUNCHES.value - before == 2
+    assert float((out.cpu() - ref_out).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_qwen3_train_step_peak_below_card(card):
+    """One qwen3-4b ``train_4k`` step at its published widths and depth
+    (fp32 weights and AdamW state, bf16 activations, B 1, 4,096
+    positions) through the launcher: a finite loss between ln V and ln V
+    + 1.5 (unit-variance logits at init give about ln V + 0.5) and a peak
+    below the card's memory."""
+    import gc
+    import math
+    from repro_torch.launch import lm as launcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    report = launcher.main(["--shape", "train_4k", "--steps", "1"])
+    total = torch.cuda.get_device_properties(card).total_memory
+    assert report["params"] == 4_411_415_040
+    assert 0 < report["losses"][0] - math.log(151936) < 1.5
+    assert report["peak_bytes"] < total

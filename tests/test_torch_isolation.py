@@ -60,6 +60,12 @@ def test_port_imports_with_jax_and_reference_blocked():
             "import repro_torch.configs.meshgraphnet\n"
             "import repro_torch.configs.equiformer_v2\n"
             "import repro_torch.launch.train_gnn_100m\n"
+            "import repro_torch.graph.generators, repro_torch.graph.sampler\n"
+            "import repro_torch.models.gnn_basic, repro_torch.models.din\n"
+            "import repro_torch.models.attention, repro_torch.configs.din\n"
+            "import repro_torch.configs.lm_common, repro_torch.training.loop\n"
+            "import repro_torch.kernels.embedding_bag.ops\n"
+            "import repro_torch.bench.profile_train_cells\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
             "               for m in sys.modules if sys.modules[m])\n"
             "print('ok')\n")
