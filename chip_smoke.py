@@ -130,6 +130,26 @@ Phases (any failed check exits non-zero before the result line):
              loss is held against the port on the CPU, and each
              parameter's gradient (and all of them in norm) against an
              fp64 witness on the CPU.
+6d. halo  — halo-sharded training (run after 6c, before 6b): ``repro_torch.
+             launch.train --mesh-world HALO_WORLD`` at ``TRAIN_SHAPE`` for
+             ``TRAIN_STEPS`` steps (4 logical shards on one card, one a card
+             where there are more), the ``segment_spmm`` counter zeroed just
+             before and read just after: exactly ``SPMM_PER_STEP`` launches a
+             step a card; finite losses, no id dropped at the reference's
+             ``cap_pp``, the first loss within ``HALO_LOSS_TOL`` of phase 6's
+             unsharded loss on the same batch and weights; peak memory,
+             ``remote_fraction`` and the exchange counters logged. The first
+             step's layer-2 ``segment_spmm`` call (ids into the exchange
+             buffer) is recorded, held bitwise to its plain version (twice)
+             and timed beside it, ``torch.sparse.mm`` and its bound (distinct
+             rows read once). Then EquiformerV2: the launcher with
+             ``--mesh-world HALO_WORLD`` (no kernel of the repo launches); at
+             its published widths on the launcher's graph through the halo
+             cell at the reference's ``cap_pp`` (losses, step ms, peak,
+             dropped share); at a no-drop ``cap_pp`` its loss within
+             ``CPU_TOL`` of the unsharded loss, and the card's sharded loss
+             within ``CPU_TOL`` of the CPU port's at ``GEO_CPU_GRAPH``. One
+             ``{"halo": ...}`` line.
 6b. geometric — SchNet, MeshGraphNet and EquiformerV2 training: each
              through ``repro_torch.launch.train --arch A --steps
              GEO_STEPS`` at the launcher's defaults with the five kernels'
@@ -217,7 +237,9 @@ Phases (any failed check exits non-zero before the result line):
              ``LM_BF16_LOSS_TOL`` (loss) and ``LM_BF16_GRAD_TOL``
              (gradients in norm).
 8. summary — one ``{"kernels": [...]}`` line (``launches_by_path`` splits
-             ``embedding_bag``'s and ``segment_spmm``'s launches by path),
+             ``embedding_bag``'s and ``segment_spmm``'s launches by path:
+             ``segment_spmm``'s GIN-TU train, SAGE full graph and GIN-TU
+             halo),
              then the result line
              ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -297,6 +319,14 @@ EQ_ROTATION = (0.4, 1.0, -0.3)  # zyz angles of the equivariance check
 EQ_EQUIV_TOL = 5e-5
 EQ_CHUNK_TOL = 5e-5
 SHARDED_WORLD = 4          # logical shards of phase 4c on one card
+HALO_WORLD = 4             # phase 6d: logical shards of the halo step
+# phase 6d: the halo-sharded GIN-TU's first loss against phase 6's
+# unsharded one on the same batch and weights. With no id dropped and the
+# 4 shards on one card, every node's logits are the same ops on the same
+# rows in the same order (the ELL lists a node's edges in edge order either
+# way); only the loss's mean is summed shard by shard (set before the card
+# ran it)
+HALO_LOSS_TOL = 1e-5
 SHARDED_HOT_FRAC = 0.25    # the launcher's --hot-frac
 DIN_TRAIN_STEPS = 3        # phase 5b: train_batch steps at full size
 DIN_CPU_TRAIN_BATCH = 256  # phase 5b's card vs CPU: the example config
@@ -1976,10 +2006,10 @@ def segment_spmm_phase() -> dict:
                                     "library_ms")}}
 
 
-def train_phase(entry: dict) -> None:
+def train_phase(entry: dict) -> dict:
     """The training launcher at ``TRAIN_SHAPE`` with the ``segment_spmm``
     counter zeroed before and read after; then card vs CPU at the
-    launcher's default size."""
+    launcher's default size. Returns the launcher's report."""
     import math
 
     import torch
@@ -1993,7 +2023,7 @@ def train_phase(entry: dict) -> None:
         "--device", "cuda", "--steps", str(TRAIN_STEPS),
         *(f"--{k.replace('_', '-')}={v}" for k, v in TRAIN_SHAPE.items())])
     launches = sp.LAUNCHES.value
-    peak = torch.cuda.max_memory_allocated()
+    peak = report["peak_bytes"] = torch.cuda.max_memory_allocated()
     log(f"train at {TRAIN_SHAPE}: {TRAIN_STEPS} steps in "
         f"{report['wall_s']:.1f} s, losses {report['losses']}, "
         f"segment_spmm launches {launches}, peak device memory "
@@ -2019,6 +2049,7 @@ def train_phase(entry: dict) -> None:
                 d_feat=defaults.d_feat, classes=defaults.classes, graphs=None)
     card_vs_cpu("gin-tu", gin_tu, info, tol_of=lambda k: (
         EPS_GRAD_TOL if k.endswith(".eps") else GRAD_TOL))
+    return report
 
 
 def card_vs_cpu(name: str, mod, info: dict, *, tol_of=lambda k: GRAD_TOL,
@@ -2119,11 +2150,12 @@ def kernel_launches() -> dict:
                       segment_spmm, flash_attention)}
 
 
-def train_full_equiformer(info: dict, shape: str) -> dict:
-    """``equiformer_v2._init`` (published widths), ``_loss`` and
-    ``run_training`` for ``GEO_STEPS`` steps on the card: losses, step ms
-    (each step's batch draw to the next one's, after a synchronize) and
-    peak memory."""
+def train_full_equiformer(info: dict, shape: str, cell=None) -> dict:
+    """``equiformer_v2._init`` (published widths), ``_loss`` (or the halo
+    ``cell``'s sharded loss on its sharded batches) and ``run_training``
+    for ``GEO_STEPS`` steps on the card: losses, step ms (each step's
+    batch draw to the next one's, after a synchronize) and peak
+    memory."""
     import math
 
     import torch
@@ -2143,10 +2175,14 @@ def train_full_equiformer(info: dict, shape: str) -> dict:
     def batch_fn(step):
         torch.cuda.synchronize()
         starts.append(time.perf_counter())
+        if cell is not None:
+            return cell.shard(make_concrete_batch(info, seed=step,
+                                                  device="cpu"))
         return make_concrete_batch(info, seed=step, device="cuda")
 
     def loss_fn(m, batch):
-        loss = equiformer_v2._loss(m, batch, info, shape)
+        loss = (cell.loss(m, batch) if cell is not None
+                else equiformer_v2._loss(m, batch, info, shape))
         losses.append(loss.detach())
         return loss
 
@@ -2164,7 +2200,8 @@ def train_full_equiformer(info: dict, shape: str) -> dict:
            "step_ms": [(b - a) * 1e3 for a, b in zip(starts, starts[1:])],
            "peak_bytes": torch.cuda.max_memory_allocated()}
     log(f"equiformer-v2 full width ({out['params']:,} params) at {shape} "
-        f"({info['nodes']} nodes, {info['edges']} edges): losses {losses}, "
+        f"({info['nodes']} nodes, {info['edges']} edges"
+        f"{'' if cell is None else ', halo-sharded'}): losses {losses}, "
         f"step ms {[round(x, 1) for x in out['step_ms']]}, peak "
         f"{out['peak_bytes'] / 2**30:.2f} GiB")
     return out
@@ -2419,6 +2456,209 @@ def full_graph_phase(stack, entry: dict) -> None:
     print(json.dumps({"full_graph": result}), flush=True)
     entry["launches_by_path"]["sage_full_graph"] = result["sage"]["launches"]
     entry["launches"] += result["sage"]["launches"]
+
+
+# ---------------------------------------------------------------------------
+# phase 6d
+# ---------------------------------------------------------------------------
+def halo_gin(unsharded: dict, entry: dict) -> dict:
+    """GIN-TU at ``TRAIN_SHAPE`` through the launcher's halo-sharded step
+    (``--mesh-world HALO_WORLD``), the ``segment_spmm`` counter zeroed just
+    before and read just after: exactly ``SPMM_PER_STEP`` launches a step
+    a card, finite losses, no id dropped, the first loss within
+    ``HALO_LOSS_TOL`` of phase 6's; the first step's layer-2 call (d 64)
+    recorded, held bitwise to the plain version, repeated, and timed
+    beside it, ``torch.sparse.mm`` and its bound."""
+    import math
+
+    import torch
+    from repro_torch.kernels import segment_spmm as sp
+    from repro_torch.kernels.segment_spmm import ops as sp_ops
+    from repro_torch.launch import train as train_launcher
+
+    torch.cuda.reset_peak_memory_stats()
+    seen, kept = [0], []
+    original = sp_ops.segment_spmm
+
+    def recorder(ids, feat, weights=None):
+        seen[0] += 1
+        if seen[0] == 2:                 # layer 2's forward, d 64
+            kept.append((ids, feat.detach()))
+        return original(ids, feat, weights)
+
+    sp.LAUNCHES.reset()
+    sp_ops.segment_spmm = recorder
+    try:
+        report = train_launcher.main([
+            "--device", "cuda", "--steps", str(TRAIN_STEPS),
+            "--mesh-world", str(HALO_WORLD),
+            *(f"--{k.replace('_', '-')}={v}" for k, v in TRAIN_SHAPE.items())])
+    finally:
+        sp_ops.segment_spmm = original
+    launches = sp.LAUNCHES.value
+    peak = torch.cuda.max_memory_allocated()
+    halo = report["halo"]
+    want = SPMM_PER_STEP * report["cards"] * TRAIN_STEPS
+    check(launches == want, f"the halo step launched segment_spmm "
+          f"{launches} times for {TRAIN_STEPS} steps on {report['cards']} "
+          f"card(s), not {want}")
+    check(report["step"] == TRAIN_STEPS
+          and len(report["losses"]) == TRAIN_STEPS
+          and all(math.isfinite(x) for x in report["losses"]),
+          f"halo losses {report['losses']} not {TRAIN_STEPS} finite")
+    check(halo["dropped_ids"] == 0, f"the halo step dropped "
+          f"{halo['dropped_ids']} ids at cap_pp {report['cap_pp']}")
+    diff = abs(report["losses"][0] - unsharded["losses"][0])
+    check(diff <= HALO_LOSS_TOL, f"halo first loss "
+          f"{report['losses'][0]!r} vs unsharded "
+          f"{unsharded['losses'][0]!r}: |diff| {diff:.3g} > {HALO_LOSS_TOL}")
+    log(f"gin-tu halo at {TRAIN_SHAPE}, {HALO_WORLD} shards on "
+        f"{report['cards']} card(s), cap_pp {report['cap_pp']}: "
+        f"{TRAIN_STEPS} steps in {report['wall_s']:.1f} s, losses "
+        f"{report['losses']} (unsharded {unsharded['losses']}; first |diff| "
+        f"{diff:.3g}, limit {HALO_LOSS_TOL}), segment_spmm launches "
+        f"{launches}, peak {peak / 2**30:.2f} GiB (unsharded "
+        f"{unsharded['peak_bytes'] / 2**30:.2f}), remote_fraction "
+        f"{report['remote_fraction']:.6f}, exchange counters {halo}")
+
+    ids, feat = kept[0]
+    got = sp.segment_spmm(ids, feat)
+    again = sp.segment_spmm(ids, feat)
+    plain = sp.segment_spmm_plain(ids, feat)
+    torch.cuda.synchronize()
+    check(torch.equal(got, plain), "segment_spmm != plain at the halo "
+          "step's layer-2 call")
+    check(torch.equal(again, got), "repeated halo call differs")
+    err = float((got - plain).abs().max())
+    del got, again, plain
+    log(f"segment_spmm == plain bitwise at the halo step's layer-2 call "
+        f"(ids {tuple(ids.shape)} into the {tuple(feat.shape)} exchange "
+        f"buffer), repeated with equal bits")
+    call = spmm_call_row("halo layer 2", ids, feat)
+    del kept, ids, feat
+    entry["launches"] += launches
+    entry["launches_by_path"]["gin_tu_halo"] = launches
+    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    return {"world": HALO_WORLD, "cards": report["cards"],
+            "cap_pp": report["cap_pp"],
+            "remote_fraction": report["remote_fraction"],
+            "losses": report["losses"],
+            "unsharded_losses": unsharded["losses"], "first_loss_diff": diff,
+            "wall_s": report["wall_s"], "peak_bytes": peak,
+            "launches": launches, "exchange": halo,
+            "segment_spmm_call": call}
+
+
+def halo_equiformer() -> dict:
+    """EquiformerV2 through the halo step: the launcher (``_reduced_init``)
+    with ``--mesh-world HALO_WORLD`` (no kernel of the repo launches); at
+    its published widths on the launcher's graph with the reference's
+    ``cap_pp`` (losses, step ms, peak, dropped share); at a ``cap_pp``
+    that drops nothing (each shard's edge count), its loss against the
+    unsharded loss on the same batch and weights, and the card's sharded
+    loss against the CPU port's at ``GEO_CPU_GRAPH``, each within
+    ``CPU_TOL``."""
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import equiformer_v2, gnn_common
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.launch.mesh import make_host_mesh
+
+    out = {}
+    counters = kernel_launches()
+    for c in counters.values():
+        c.reset()
+    report = train_launcher.main([
+        "--device", "cuda", "--arch", "equiformer-v2", "--steps",
+        str(GEO_STEPS), "--mesh-world", str(HALO_WORLD)])
+    launched = {k: c.value for k, c in counters.items()}
+    check(not any(launched.values()), f"equiformer-v2 halo training "
+          f"launched kernels of the repo: {launched}")
+    check(len(report["losses"]) == GEO_STEPS
+          and all(math.isfinite(x) for x in report["losses"]),
+          f"equiformer-v2 halo launcher losses {report['losses']}")
+    out["launcher"] = {k: report[k] for k in (
+        "params", "losses", "wall_s", "cap_pp", "remote_fraction", "halo")}
+    log(f"equiformer-v2 through the launcher with --mesh-world "
+        f"{HALO_WORLD}: {report['params']:,} params, losses "
+        f"{report['losses']}, cap_pp {report['cap_pp']}, exchange "
+        f"{report['halo']}")
+
+    adapter = equiformer_v2.ARCH.adapter
+    defaults = train_launcher.parse_args([])
+    info = dict(nodes=defaults.nodes, edges=defaults.edges,
+                d_feat=defaults.d_feat, classes=defaults.classes,
+                graphs=None)
+    mesh = make_host_mesh(HALO_WORLD, device="cuda")
+    cell = gnn_common.build_halo_cell(adapter, info, "custom", mesh)
+    full = train_full_equiformer(info, "custom", cell)
+    st = cell.ctx.stats
+    full["cap_pp"] = cell.ctx.cap_pp
+    full["exchange"] = dict(st)
+    full["dropped_share"] = st["dropped_ids"] / max(st["unique_ids"], 1)
+    check(full["params"] == EQ_PARAMS, f"equiformer-v2 _init has "
+          f"{full['params']:,} parameters, not {EQ_PARAMS:,}")
+    log(f"equiformer-v2 full width halo-sharded at the launcher's graph: "
+        f"cap_pp {cell.ctx.cap_pp}, dropped share "
+        f"{full['dropped_share']:.4f} of the unique ids wanted "
+        f"({st['dropped_ids']} of {st['unique_ids']} over "
+        f"{st['exchanges']} exchanges)")
+    out["full"] = full
+
+    def losses(graph: dict, dev: str) -> tuple[float, float, dict]:
+        """(sharded loss at a no-drop cap_pp, unsharded loss, counters)
+        at published widths, seed 0, without gradients."""
+        model = equiformer_v2._init(torch.Generator().manual_seed(0),
+                                    graph["d_feat"], graph["classes"],
+                                    "custom", device=dev)
+        batch = gnn_common.make_concrete_batch(graph, seed=0, device="cpu")
+        rows = graph["nodes"] // HALO_WORLD
+        cap = int(np.bincount(batch["dst"].numpy() // rows,
+                              minlength=HALO_WORLD).max())
+        c = gnn_common.build_halo_cell(
+            adapter, graph, "custom",
+            make_host_mesh(HALO_WORLD, device=dev), cap_pp=cap)
+        with torch.no_grad():
+            sharded = float(c.loss(model, c.shard(batch)))
+            whole = float(equiformer_v2._loss(
+                model, {k: v.to(dev) for k, v in batch.items()}, graph,
+                "custom"))
+        check(c.ctx.stats["dropped_ids"] == 0, "a no-drop cap_pp dropped")
+        return sharded, whole, dict(c.ctx.stats)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded, whole, _ = losses(info, "cuda")
+    diff = abs(sharded - whole)
+    check(diff <= CPU_TOL, f"equiformer-v2 halo loss {sharded!r} vs "
+          f"unsharded {whole!r} on the card: |diff| {diff:.3g} > {CPU_TOL}")
+    small = dict(GEO_CPU_GRAPH, graphs=None)
+    card, _, _ = losses(small, "cuda")
+    cpu, _, _ = losses(small, "cpu")
+    cpu_diff = abs(card - cpu)
+    check(cpu_diff <= CPU_TOL, f"equiformer-v2 halo loss card {card!r} vs "
+          f"CPU {cpu!r}: |diff| {cpu_diff:.3g} > {CPU_TOL}")
+    out["no_drop"] = {"sharded": sharded, "unsharded": whole, "diff": diff,
+                      "card_vs_cpu": {"card": card, "cpu": cpu,
+                                      "diff": cpu_diff}}
+    log(f"equiformer-v2 full width halo loss at a no-drop cap_pp: "
+        f"{sharded!r} vs unsharded {whole!r} (|diff| {diff:.3g}); at "
+        f"{GEO_CPU_GRAPH} card {card!r} vs CPU {cpu!r} (|diff| "
+        f"{cpu_diff:.3g}; limit {CPU_TOL})")
+    return out
+
+
+def halo_phase(unsharded: dict, entry: dict) -> None:
+    """Phase 6d: halo-sharded GIN-TU and EquiformerV2 training; one
+    ``{"halo": ...}`` line."""
+    import torch
+    result = {"gin_tu": halo_gin(unsharded, entry)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["equiformer_v2"] = halo_equiformer()
+    print(json.dumps({"halo": result}), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3048,7 +3288,7 @@ def main() -> None:
     entry = segment_spmm_phase()
     gc.collect()
     torch.cuda.empty_cache()
-    train_phase(entry)
+    unsharded = train_phase(entry)
     results.append(entry)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3058,6 +3298,13 @@ def main() -> None:
     full_graph_phase(stack, entry)
     log(f"full graph phase in {time.perf_counter() - t0:.1f} s")
     del stack
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 6d. halo-sharded training
+    t0 = time.perf_counter()
+    halo_phase(unsharded, entry)
+    log(f"halo phase in {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.bench.profile_train \\
         [--arch gin-tu|schnet|meshgraphnet|equiformer-v2] \\
-        [--out profile_train.json]
+        [--mesh-world W] [--out profile_train.json]
 
 ``gin-tu`` (default) runs at the ``ogb_products`` shape; the geometric
 architectures at the training launcher's default graph (4,096 nodes,
@@ -25,6 +25,18 @@ Step 0 warms up (kernel build and load, cuBLAS handles); the next
 under ``torch.profiler`` for the device's busy time and idle share
 (``1 - busy / wall``) over the whole step and over its device part (from
 the copy on), and the device time of the costliest activities.
+
+With ``--mesh-world W`` (``gin-tu`` only) the step is the launcher's
+halo-sharded one (``gnn_common.build_halo_cell``, W logical shards
+round-robin over the cards, the reference's ``cap_pp``), its stages
+``batch``, ``shard`` (the partition by destination owner on the host and
+the copies), ``plan`` (the exchange plan and the local ELL tables),
+``forward``, ``backward`` and ``optimizer``; the forward is split further
+by CUDA events summed over the layers (``HALO_STAGES``): ``exchange`` (the
+answer buffers), ``local_sum`` (``segment_spmm``), ``mlp`` (the GIN
+layer) and ``head`` (readout and loss). The report adds the staged loss's
+difference from the sharded loss (none: the same ops), the exchange
+counters and the launches by stage.
 
 For ``equiformer-v2`` one more forward, without autograd, runs stage by
 stage with CUDA events around each stage of each layer, summed over the
@@ -56,11 +68,15 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.bench.profile_lm import _Stages
 from repro_torch.configs import gin_tu
-from repro_torch.configs.gnn_common import (SHAPES, classification_loss,
-                                            make_concrete_batch)
+from repro_torch.configs.gnn_common import (SHAPES, build_halo_cell,
+                                            classification_loss,
+                                            make_concrete_batch,
+                                            sharded_classification_loss)
 from repro_torch.graph.segment import segment_sum
 from repro_torch.kernels import segment_spmm as sp
+from repro_torch.kernels.segment_spmm.ops import segment_spmm_autograd
 from repro_torch.launch import train as train_launcher
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import equiformer_v2 as eq
 from repro_torch.models.equiformer_v2 import (_eq_layer_norm, _ffn_block,
                                               _rbf, _rotate, infer_cfg)
@@ -68,6 +84,7 @@ from repro_torch.models.gnn_basic import gin_full_graph
 from repro_torch.models.so3 import edge_rotation_blocks, num_coeffs
 from repro_torch.training import AdamW
 
+HALO_STAGES = ("exchange", "local_sum", "mlp", "head")
 EQ_STAGES = ("geometry", "norm_gather", "rotate", "so2", "attention",
              "message_sum", "finalize", "ffn", "head")
 TIMED_STEPS = 2
@@ -112,6 +129,65 @@ def one_step(model, opt, opt_state, info: dict, seed: int,
     stage("optimizer")
     secs = {k: b - a for k, a, b in zip(launches, stamps, stamps[1:])}
     return opt_state, secs, launches
+
+
+def staged_halo_loss(model, cell, batch: list[dict], planned,
+                     st: _Stages) -> torch.Tensor:
+    """``gin_tu._loss_sharded`` on a sharded batch whose plan and tables
+    (``gin_tu.halo_tables``) are ``planned``, its forward stages under
+    CUDA events."""
+    ctx, (plan, tables) = cell.ctx, planned
+    models = ctx.replicas(model)
+    hs = [b["node_feat"] for b in batch]
+    for i in range(len(model.layers)):
+        st.start("exchange")
+        bufs = ctx.exchange(plan, hs)
+        st.stop()
+        st.start("local_sum")
+        aggs = [segment_spmm_autograd(t[0], buf, ids_t=t[1])
+                for buf, t in zip(bufs, tables)]
+        st.stop()
+        del bufs
+        st.start("mlp")
+        hs = [m.layers[i](h, a) for m, h, a in zip(models, hs, aggs)]
+        st.stop()
+    st.start("head")
+    loss = sharded_classification_loss(
+        ctx, [m.readout(h) for m, h in zip(models, hs)],
+        [b["labels"] for b in batch])
+    st.stop()
+    return loss
+
+
+def one_halo_step(model, opt, opt_state, cell, info: dict, seed: int,
+                  dev: torch.device):
+    """One halo-sharded GIN-TU step stage by stage; returns (new optimizer
+    state, stage → seconds, stage → segment_spmm launches, forward stage
+    → ms)."""
+    params = dict(model.named_parameters())
+    stamps, launches = [time.perf_counter()], {}
+
+    def stage(name):
+        _stamp(stamps, dev)
+        launches[name] = sp.LAUNCHES.value
+        sp.LAUNCHES.reset()
+
+    sp.LAUNCHES.reset()
+    host = make_concrete_batch(info, seed=seed, device="cpu")
+    stage("batch")
+    batch = cell.shard(host)
+    stage("shard")
+    planned = gin_tu.halo_tables(batch, cell.ctx)
+    stage("plan")
+    st = _Stages(HALO_STAGES)
+    loss = staged_halo_loss(model, cell, batch, planned, st)
+    stage("forward")
+    grads = torch.autograd.grad(loss, list(params.values()))
+    stage("backward")
+    _, opt_state = opt.update(dict(zip(params, grads)), opt_state, params)
+    stage("optimizer")
+    secs = {k: b - a for k, a, b in zip(launches, stamps, stamps[1:])}
+    return opt_state, secs, launches, st.totals()
 
 
 @torch.no_grad()
@@ -179,10 +255,15 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser(prog="repro_torch.bench.profile_train")
     p.add_argument("--arch", default="gin-tu",
                    choices=sorted(train_launcher.ADAPTERS))
+    p.add_argument("--mesh-world", type=int, default=None,
+                   help="gin-tu only: profile the halo-sharded step on this "
+                        "many logical shards")
     p.add_argument("--out", default=None, help="write the report here")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
+    if args.mesh_world is not None and args.arch != "gin-tu":
+        raise SystemExit("--mesh-world profiles gin-tu only")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     if args.arch == "gin-tu":
@@ -197,20 +278,31 @@ def main(argv=None) -> dict:
             gen, info["d_feat"], info["classes"], "custom", device=dev)
     opt = AdamW(lr=1e-3, weight_decay=0.0)
     opt_state = opt.init(dict(model.named_parameters()))
+    halo = {}
+    if args.mesh_world is None:
+        def step(opt_state, seed):
+            return one_step(model, opt, opt_state, info, seed, dev,
+                            args.arch)
+    else:
+        cell = build_halo_cell(gin_tu.ARCH.adapter, info, "ogb_products",
+                               make_host_mesh(args.mesh_world, device=dev))
 
-    opt_state, _, _ = one_step(model, opt, opt_state, info, 0, dev,
-                               args.arch)
+        def step(opt_state, seed):
+            opt_state, secs, launches, fwd = one_halo_step(
+                model, opt, opt_state, cell, info, seed, dev)
+            halo.setdefault("forward_stage_ms", []).append(fwd)
+            return opt_state, secs, launches
+
+    opt_state, _, _ = step(opt_state, 0)
     torch.cuda.reset_peak_memory_stats(dev)
     timed = []
     for s in range(TIMED_STEPS):
-        opt_state, secs, launches = one_step(model, opt, opt_state, info,
-                                             1 + s, dev, args.arch)
+        opt_state, secs, launches = step(opt_state, 1 + s)
         timed.append(secs)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        opt_state, secs, _ = one_step(model, opt, opt_state, info,
-                                      1 + TIMED_STEPS, dev, args.arch)
+        opt_state, secs, _ = step(opt_state, 1 + TIMED_STEPS)
         wall = time.perf_counter() - t0
     busy_us, by_name = 0.0, defaultdict(float)
     for e in prof.events():
@@ -237,6 +329,21 @@ def main(argv=None) -> dict:
     }
     if args.arch == "gin-tu":
         report["segment_spmm_launches"] = launches
+    if halo:
+        fwd = halo["forward_stage_ms"][1:1 + TIMED_STEPS]
+        with torch.no_grad():
+            batch = cell.shard(make_concrete_batch(info, seed=0,
+                                                   device="cpu"))
+            whole = cell.loss(model, batch)
+            staged = staged_halo_loss(model, cell, batch,
+                                      gin_tu.halo_tables(batch, cell.ctx),
+                                      _Stages(HALO_STAGES))
+        report.update({
+            "mesh_world": args.mesh_world, "cards": len(cell.ctx.groups),
+            "cap_pp": cell.ctx.cap_pp, "exchange": cell.ctx.stats,
+            "forward_stage_p50_ms": {k: statistics.median(f[k] for f in fwd)
+                                     for k in fwd[0]},
+            "staged_loss_diff": float((staged - whole).abs())})
     if args.arch == "equiformer-v2":
         batch = make_concrete_batch(info, seed=1 + TIMED_STEPS, device=dev)
         staged, stage_ms = staged_equiformer(model, batch, info)

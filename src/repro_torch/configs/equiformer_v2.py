@@ -5,9 +5,8 @@ equivariance=SO(2)-eSCN [arXiv:2306.12059] — the published widths of
 The big shapes process the edges in chunks (``EDGE_CHUNKS``) to bound the
 ``(E, (l_max+1)², C)`` message tensors. ``_reduced_init`` (2 layers, 16
 channels, l_max 2) is what the reference's training launcher builds;
-``_init`` keeps the published widths.
-
-Not ported: ``_loss_sharded`` (the halo-exchange path; ROADMAP A10b).
+``_init`` keeps the published widths. :func:`_loss_sharded` is the
+halo-sharded loss.
 """
 from __future__ import annotations
 
@@ -15,9 +14,12 @@ import torch
 
 from repro_torch.configs.base import register
 from repro_torch.configs.gnn_common import (GNNAdapter, classification_loss,
-                                            make_gnn_arch, regression_loss)
+                                            make_gnn_arch, regression_loss,
+                                            sharded_classification_loss)
+from repro_torch.core.halo import HaloCtx
 from repro_torch.models.equiformer_v2 import (EquiformerV2,
                                               equiformer_forward,
+                                              equiformer_forward_local,
                                               equiformer_init)
 
 N_LAYERS, CHANNELS, L_MAX, M_MAX, N_HEADS = 12, 128, 6, 2, 8
@@ -59,6 +61,25 @@ def _loss(model: EquiformerV2, batch: dict, info: dict, shape: str
     return classification_loss(logits, batch["labels"])
 
 
+def _loss_sharded(model: EquiformerV2, batch: list[dict], info: dict,
+                  shape: str, ctx: HaloCtx) -> torch.Tensor:
+    """Node classification with dst-aligned edges on ``ctx``'s mesh
+    (``batch``: one dict a group, ``gnn_common.shard_batch``): the
+    positions all-gathered (N × 3 is tiny), then
+    :func:`equiformer_forward_local` and each shard's masked cross
+    entropy, reduced by ``ctx.mean``."""
+    pos = [ctx.all_gather([b["positions"] for b in batch], dev)
+           for dev, _ in ctx.groups]
+    logits = equiformer_forward_local(
+        ctx.replicas(model), [b["species"] for b in batch], pos,
+        [b["node_feat"] for b in batch], [b["src"] for b in batch],
+        [b["dst"] for b in batch], ctx=ctx,
+        edge_chunks=EDGE_CHUNKS.get(shape, 1))
+    return sharded_classification_loss(ctx, logits,
+                                       [b["labels"] for b in batch])
+
+
 ARCH = register(make_gnn_arch(GNNAdapter(
     name="equiformer-v2", init=_init, loss=_loss,
-    description="eSCN SO(2)-convolution equivariant graph attention.")))
+    description="eSCN SO(2)-convolution equivariant graph attention.",
+    loss_sharded=_loss_sharded)))

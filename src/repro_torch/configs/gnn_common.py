@@ -1,8 +1,9 @@
-"""Shapes, the unified batch, the losses and the per-architecture adapter
-shared by the GNN architectures — ``src/repro/configs/gnn_common.py``
-without its JAX-only cell, mesh and sharding machinery
-(``build_gnn_cell``, ``gnn_rules``, ``gnn_smoke``, ``CellSpec``; dry-run
-only, ROADMAP A12).
+"""Shapes, the unified batch, the losses, the per-architecture adapter and
+the halo-sharded training cell shared by the GNN architectures —
+``src/repro/configs/gnn_common.py`` without its dry-run cell, mesh rules
+and smoke (``build_gnn_cell``'s unsharded half, ``gnn_rules``,
+``gnn_smoke``, ``CellSpec``; ROADMAP A12). Its ``use_halo`` branch is
+:func:`build_halo_cell`.
 
 Shapes:
   full_graph_sm — full-batch train, N=2,708 / E=10,556 / d=1,433 (Cora)
@@ -17,7 +18,7 @@ labels(, mol_id)}``; every architecture consumes the subset it needs.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -25,6 +26,8 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import Arch
+from repro_torch.core.halo import HaloCtx, partition_edges_by_dst
+from repro_torch.launch.mesh import Mesh
 
 SHAPES = {
     # padded from N=2,708 / E=10,556 to multiples of 32
@@ -105,14 +108,123 @@ class GNNAdapter:
     the per-shape loss from the unified batch.
 
     ``init(generator, d_feat, n_out, shape, *, device)`` returns the
-    model; ``loss(model, batch, info, shape)`` a scalar. The reference's
-    ``loss_sharded`` (the halo-exchange path) is not ported (ROADMAP
-    A10b)."""
+    model; ``loss(model, batch, info, shape)`` a scalar. The optional
+    locality-sharded path ``loss_sharded(model, sharded_batch, info,
+    shape, ctx)`` (dst-aligned edges, halo exchanges through the
+    :class:`~repro_torch.core.halo.HaloCtx` ``ctx``; see
+    :func:`build_halo_cell`) returns the loss of every shard together,
+    on the mesh's first device; it serves the shapes in
+    ``sharded_shapes``."""
 
     name: str
     init: Callable
     loss: Callable
     description: str = ""
+    loss_sharded: Optional[Callable] = None
+    sharded_shapes: tuple = ("ogb_products",)
+
+
+def use_halo(adapter: GNNAdapter, shape: str, info: dict,
+             world: int) -> bool:
+    """The reference's condition for the halo-sharded step: the adapter
+    has a sharded loss, the shape is one it serves (or the launcher's
+    ``"custom"`` graph), and nodes and edges split evenly over
+    ``world``."""
+    return (adapter.loss_sharded is not None
+            and (shape in adapter.sharded_shapes or shape == "custom")
+            and info["nodes"] % world == 0 and info["edges"] % world == 0)
+
+
+def halo_cap_pp(info: dict, world: int) -> int:
+    """The reference's per-peer request capacity: a 0.4 margin over the
+    remote fraction of a locality partition (~0.25–0.3) of a shard's
+    ``edges / world`` edges, at least 16."""
+    e_local = info["edges"] // world
+    return max(16, int(e_local * 0.4 / world))
+
+
+def shard_batch(batch: dict, ctx: HaloCtx) -> list[dict]:
+    """A unified batch laid out on ``ctx``'s mesh: the edges partitioned
+    by destination owner (:func:`partition_edges_by_dst`, on the host),
+    then one dict a group of ``ctx.groups`` on its device: the node
+    arrays' rows of its shards and their edge slices, in shard order."""
+    n = batch["node_feat"].shape[0]
+    src, dst = partition_edges_by_dst(batch["src"].cpu().numpy(),
+                                      batch["dst"].cpu().numpy(), n,
+                                      ctx.world)
+    edges = {"src": torch.from_numpy(src).view(ctx.world, -1),
+             "dst": torch.from_numpy(dst).view(ctx.world, -1)}
+    nodes = {k: v for k, v in batch.items() if k not in edges}
+    out = []
+    for dev, shards in ctx.groups:
+        if list(shards) == list(range(ctx.world)):
+            part = {k: v.to(dev) for k, v in nodes.items()}
+        else:
+            part = {k: torch.cat([v[s * ctx.rows:(s + 1) * ctx.rows]
+                                  for s in shards]).to(dev)
+                    for k, v in nodes.items()}
+        for k, v in edges.items():
+            part[k] = v[list(shards)].reshape(-1).to(dev)
+        out.append(part)
+    return out
+
+
+def sharded_classification_loss(ctx: HaloCtx,
+                                 logits: list[torch.Tensor],
+                                 labels: list[torch.Tensor]) -> torch.Tensor:
+    """The reference's sharded node classification loss: each shard's
+    summed softmax cross entropy over its labelled rows (``labels ≥
+    0``), and their count, reduced by ``ctx.mean``. One tensor a group
+    in each list."""
+    totals, counts = [], []
+    for (_, shards), lg, lab in zip(ctx.groups, logits, labels):
+        lg = lg.float()
+        lse = torch.logsumexp(lg, dim=-1)
+        tgt = lg.gather(-1, lab.long().clamp_min(0)[:, None])[:, 0]
+        ok = (lab >= 0).float()
+        totals.append(((lse - tgt) * ok).view(len(shards), -1).sum(1))
+        counts.append(ok.view(len(shards), -1).sum(1))
+    return ctx.mean(totals, counts)
+
+
+@dataclasses.dataclass
+class HaloCell:
+    """The halo-sharded training cell: ``loss(model, sharded_batch)``
+    for ``make_train_step``/``run_training`` (parameters replicated: on
+    the mesh's first device, copied to the other cards by the loss), and
+    ``shard(batch)`` laying a unified batch out on the mesh."""
+
+    ctx: HaloCtx
+    loss: Callable
+    shard: Callable
+
+
+def build_halo_cell(adapter: GNNAdapter, info: dict, shape: str,
+                    mesh: Mesh, *, cap_pp: Optional[int] = None
+                    ) -> HaloCell:
+    """The reference's ``build_gnn_cell`` ``use_halo`` branch: ``rows =
+    nodes / world`` a shard, ``cap_pp`` by :func:`halo_cap_pp` unless
+    given, a :class:`HaloCtx` over ``mesh``, and the adapter's sharded
+    loss.
+
+    Raises:
+        ValueError: :func:`use_halo` does not hold.
+    """
+    world = mesh.world
+    if not use_halo(adapter, shape, info, world):
+        raise ValueError(
+            f"{adapter.name} at {shape} ({info['nodes']} nodes, "
+            f"{info['edges']} edges) has no halo-sharded step over "
+            f"{world} shards: it needs a sharded loss, a shape in "
+            f"{adapter.sharded_shapes} or 'custom', and nodes and edges "
+            "divisible by the world")
+    ctx = HaloCtx(mesh, info["nodes"] // world,
+                  halo_cap_pp(info, world) if cap_pp is None else cap_pp)
+
+    def loss(model, batch):
+        return adapter.loss_sharded(model, batch, info, shape, ctx)
+
+    return HaloCell(ctx, loss, lambda batch: shard_batch(batch, ctx))
 
 
 def make_gnn_arch(adapter: GNNAdapter) -> Arch:

@@ -57,6 +57,7 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTileCols = kThreads;  // one folding thread a column
 constexpr int kMaxSmem = 232448;     // 227 KB, the most a block may use
+constexpr int kMaxDevices = 64;      // cards a process may launch on
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -198,17 +199,22 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Lift the dynamic shared memory limit of one instantiation to 227 KB,
-// once per process (executor lanes launch from several threads).
+// once per device (the attribute is the current device's; executor lanes
+// launch from several threads).
 template <typename T, bool kWeighted, bool kMean, int kChunk>
 cudaError_t allow_smem() {
-  static std::once_flag once;
-  static cudaError_t err = cudaSuccess;
-  std::call_once(once, [] {
-    err = cudaFuncSetAttribute(
+  static std::once_flag once[kMaxDevices];
+  static cudaError_t err[kMaxDevices];
+  int dev = 0;
+  const cudaError_t got = cudaGetDevice(&dev);
+  if (got != cudaSuccess) return got;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::call_once(once[dev], [dev] {
+    err[dev] = cudaFuncSetAttribute(
         embedding_bag_kernel<T, kWeighted, kMean, kChunk>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   });
-  return err;
+  return err[dev];
 }
 
 struct Args {

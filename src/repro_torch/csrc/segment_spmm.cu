@@ -80,6 +80,7 @@ constexpr int kMaxPending = 6;     // windows (cp.async groups) in flight
 constexpr int kGroups = 8;         // window records and mbarriers
                                    // (> kMaxPending)
 constexpr int kMaxSmem = 232448;   // 227 KB, the most a block may use
+constexpr int kMaxDevices = 64;    // cards a process may launch on
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -438,17 +439,22 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
 }
 
 // Lift the dynamic shared memory limit of one instantiation to 227 KB,
-// once per process (executor lanes launch from several threads).
+// once per device (the attribute is the current device's; executor lanes
+// launch from several threads).
 template <typename T, bool kWeighted, int kChunk, int kVec, bool kLines>
 cudaError_t allow_smem() {
-  static std::once_flag once;
-  static cudaError_t err = cudaSuccess;
-  std::call_once(once, [] {
-    err = cudaFuncSetAttribute(
+  static std::once_flag once[kMaxDevices];
+  static cudaError_t err[kMaxDevices];
+  int dev = 0;
+  const cudaError_t got = cudaGetDevice(&dev);
+  if (got != cudaSuccess) return got;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::call_once(once[dev], [dev] {
+    err[dev] = cudaFuncSetAttribute(
         segment_spmm_kernel<T, kWeighted, kChunk, kVec, kLines>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   });
-  return err;
+  return err[dev];
 }
 
 struct Args {

@@ -26,8 +26,10 @@ card, so the order of a node's terms varies from run to run there). The
 ``.at[...].set`` scatters of the reference are writes into fresh zero
 tensors and a concatenation, which autograd differentiates.
 
-Not ported: ``equiformer_forward_local`` (the halo-exchange path; ROADMAP
-A10b).
+:func:`equiformer_forward_local` is the locality-sharded forward on the
+single-controller mesh: dst-aligned edges, every sum local to its shard,
+each layer's source rows gathered by the halo exchange
+(:mod:`repro_torch.core.halo`).
 """
 from __future__ import annotations
 
@@ -382,6 +384,30 @@ def _edges_pass(p, cfg, x, sc, dc, rc, *blocks):
                             x.shape[0])
 
 
+def _node_input(model: EquiformerV2, cfg: dict, species: torch.Tensor,
+                node_feat: Optional[torch.Tensor]) -> torch.Tensor:
+    """``(n, (l_max+1)², C)`` node features: the species embedding (plus
+    the projected input features) in the l = 0 row, zeros above."""
+    h0 = model.embed[species.long().clamp(0, model.embed.shape[0] - 1)]
+    if node_feat is not None and model.feat_proj is not None:
+        h0 = h0 + model.feat_proj(node_feat)
+    S = num_coeffs(cfg["l_max"])
+    return torch.cat([h0[:, None, :],
+                      h0.new_zeros((h0.shape[0], S - 1, cfg["channels"]))],
+                     dim=1)
+
+
+def _edge_geometry(cfg: dict, positions: torch.Tensor, src: torch.Tensor,
+                   dst: torch.Tensor) -> tuple[torch.Tensor, list]:
+    """The radial basis and the rotation blocks (``D`` blocks, then
+    ``Dinv``) of edges ``src → dst`` (int64, ``-1`` padded)."""
+    rij = positions[dst.clamp_min(0)] - positions[src.clamp_min(0)]
+    dist = torch.sqrt((rij ** 2).sum(-1) + 1e-12)
+    rhat = rij / torch.clamp(dist, min=1e-6)[:, None]
+    D, Dinv = edge_rotation_blocks(rhat, cfg["l_max"])
+    return _rbf(dist, cfg["n_rbf"], cfg["cutoff"]), D + Dinv
+
+
 def _layer_step(p, cfg, edge_chunks, x, src, dst, rbf, *blocks):
     if edge_chunks > 1:
         num = torch.zeros_like(x)
@@ -412,25 +438,12 @@ def equiformer_forward(model: EquiformerV2, species: torch.Tensor,
     -1 padded; ``edge_chunks`` splits them into that many chunks (padded
     with -1 edges)."""
     cfg = infer_cfg(model, cutoff=cutoff)
-    l_max, C = cfg["l_max"], cfg["channels"]
-    S = num_coeffs(l_max)
-
-    h0 = model.embed[species.long().clamp(0, model.embed.shape[0] - 1)]
-    if node_feat is not None and model.feat_proj is not None:
-        h0 = h0 + model.feat_proj(node_feat)
-    if h0.shape[0] != num_nodes:
-        raise ValueError(f"{h0.shape[0]} node rows, num_nodes={num_nodes}")
-    x = torch.cat([h0[:, None, :], h0.new_zeros((num_nodes, S - 1, C))],
-                  dim=1)
-
+    x = _node_input(model, cfg, species, node_feat)
+    if x.shape[0] != num_nodes:
+        raise ValueError(f"{x.shape[0]} node rows, num_nodes={num_nodes}")
     src, dst = src.long(), dst.long()
-    rij = positions[dst.clamp_min(0)] - positions[src.clamp_min(0)]
-    dist = torch.sqrt((rij ** 2).sum(-1) + 1e-12)
-    rhat = rij / torch.clamp(dist, min=1e-6)[:, None]
     # edge geometry is depth-independent: computed once, used by all layers
-    D, Dinv = edge_rotation_blocks(rhat, l_max)
-    rbf = _rbf(dist, cfg["n_rbf"], cfg["cutoff"])
-    blocks = D + Dinv
+    rbf, blocks = _edge_geometry(cfg, positions, src, dst)
     if edge_chunks > 1:
         src = _chunk_edges(src, edge_chunks, -1)
         dst = _chunk_edges(dst, edge_chunks, -1)
@@ -447,3 +460,110 @@ def equiformer_forward(model: EquiformerV2, species: torch.Tensor,
             raise ValueError("mol_id needs num_graphs")
         return segment_sum(out, mol_id.long().clamp_min(0), num_graphs)
     return out
+
+
+def _chunk_group(arr: torch.Tensor, shards: int, chunks: int, fill
+                 ) -> torch.Tensor:
+    """A group's edge array (``shards`` equal shard slices in shard
+    order) cut into ``chunks`` per shard as the reference cuts each
+    shard's edges (:func:`_chunk_edges`): ``(chunks, shards·⌈E/chunks⌉,
+    ...)``, chunk ``k`` holding every shard's ``k``-th chunk in shard
+    order."""
+    parts = [_chunk_edges(a, chunks, fill) for a in arr.chunk(shards)]
+    return torch.stack(parts, 1).flatten(1, 2)
+
+
+def _local_edges_pass(ps, cfg, ctx, plan, xs, edges):
+    """Layer norm, the halo gather of the (normed) source rows and the
+    attention sums over one set of every group's edges; ``edges[g]`` =
+    ``(src, local dst, rbf, D blocks + Dinv blocks)``."""
+    L1 = cfg["l_max"] + 1
+    hs = [_eq_layer_norm(p.ln1_g, x, cfg["l_max"]) for p, x in zip(ps, xs)]
+    h_src = ctx.gather(hs, plan)                # the one communication step
+    nums, dens = [], []
+    for p, x, rows, (sc, dl, rc, blocks) in zip(ps, xs, h_src, edges):
+        valid = (sc >= 0) & (dl >= 0)
+        n_, d_ = _attention_edges(p, cfg, rows, valid, dl.clamp_min(0),
+                                  list(blocks[:L1]), list(blocks[L1:]), rc,
+                                  x.shape[0])
+        nums.append(n_)
+        dens.append(d_)
+    return nums, dens
+
+
+def _local_layer_step(ps, cfg, ctx, plans, xs, edges):
+    """One layer on every group: the attention sums (over edge chunks when
+    there is more than one plan, each chunk recomputed in the backward),
+    finalize and FFN."""
+    if len(plans) > 1:
+        nums = [torch.zeros_like(x) for x in xs]
+        dens = [x.new_zeros((x.shape[0], cfg["n_heads"])) for x in xs]
+        for k, plan in enumerate(plans):
+            chunk = [(sc[k], dl[k], rc[k], [b[k] for b in blocks])
+                     for sc, dl, rc, blocks in edges]
+            n_, d_ = checkpoint(_local_edges_pass, ps, cfg, ctx, plan, xs,
+                                chunk, use_reentrant=False)
+            nums = [a + b for a, b in zip(nums, n_)]
+            dens = [a + b for a, b in zip(dens, d_)]
+    else:
+        nums, dens = _local_edges_pass(ps, cfg, ctx, plans[0], xs, edges)
+    out = []
+    for p, x, num, den in zip(ps, xs, nums, dens):
+        x = x + _attention_finalize(p, cfg, num, den)
+        out.append(x + _ffn_block(p, cfg, x))
+    return out
+
+
+def equiformer_forward_local(models: list[EquiformerV2],
+                             species_l: list[torch.Tensor],
+                             positions_g: list[torch.Tensor],
+                             node_feat_l: list[Optional[torch.Tensor]],
+                             src_l: list[torch.Tensor],
+                             dst_l: list[torch.Tensor], *, ctx,
+                             edge_chunks: int = 1,
+                             cutoff: float = 5.0) -> list[torch.Tensor]:
+    """The locality-sharded forward (the reference's
+    ``equiformer_forward_local``, which runs inside ``shard_map``) over
+    every group of ``ctx``'s mesh at once; each list holds one entry a
+    group of ``ctx.groups``.
+
+    Args:
+        models: the model for each group (``ctx.replicas``).
+        species_l, node_feat_l: the group's node rows (its shards' rows in
+            shard order).
+        positions_g: every node's positions (tiny, replicated), on each
+            group's device.
+        src_l, dst_l: the group's dst-aligned edge slices (each shard's
+            destinations lie in its rows), global ids, ``-1`` padded.
+        ctx: the :class:`~repro_torch.core.halo.HaloCtx`; its ``gather``
+            is each layer's one communication step.
+        edge_chunks: chunks of each shard's edges, as the reference.
+
+    Returns:
+        Each group's ``(k_g·rows, d_out)`` node outputs.
+    """
+    cfg = infer_cfg(models[0], cutoff=cutoff)
+    xs, edges = [], []
+    for gi, m in enumerate(models):
+        k = len(ctx.groups[gi][1])
+        xs.append(_node_input(m, cfg, species_l[gi], node_feat_l[gi]))
+        src, dst = src_l[gi].long(), dst_l[gi].long()
+        rbf, blocks = _edge_geometry(cfg, positions_g[gi], src, dst)
+        valid = (src >= 0) & (dst >= 0)
+        dl = torch.where(valid, ctx.local_rows(gi, dst), -1)
+        if edge_chunks > 1:
+            src = _chunk_group(src, k, edge_chunks, -1)
+            dl = _chunk_group(dl, k, edge_chunks, -1)
+            rbf = _chunk_group(rbf, k, edge_chunks, 0.0)
+            blocks = [_chunk_group(b, k, edge_chunks, 0.0) for b in blocks]
+        edges.append((src, dl, rbf, blocks))
+    if edge_chunks > 1:
+        plans = [ctx.plan([e[0][c] for e in edges])
+                 for c in range(edge_chunks)]
+    else:
+        plans = [ctx.plan([e[0] for e in edges])]
+
+    for i in range(cfg["n_layers"]):
+        xs = checkpoint(_local_layer_step, [m.layers[i] for m in models],
+                        cfg, ctx, plans, xs, edges, use_reentrant=False)
+    return [m.out2(F.silu(m.out1(x[:, 0, :]))) for m, x in zip(models, xs)]

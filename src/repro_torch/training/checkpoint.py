@@ -12,8 +12,11 @@ to the host when ``save`` is called.
 Restart semantics: :meth:`latest_step` returns the newest step whose
 manifest exists, so a directory a crashed writer left without one is
 ignored, and stale ``tmp_*`` directories are removed when a manager opens
-the directory. Not ported: restoring onto a mesh ("elastic restore";
-ROADMAP A10b).
+the directory.
+
+Elastic restore: leaves are stored whole, so ``restore(...,
+placements=)`` can split any leaf over any mesh
+(:class:`~repro_torch.launch.mesh.Mesh`), whatever world wrote it.
 """
 from __future__ import annotations
 
@@ -44,6 +47,17 @@ def _to_host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy().copy()
     return np.array(leaf)
+
+
+def _split(leaf: torch.Tensor, mesh, dim: int, name: str
+           ) -> list[torch.Tensor]:
+    """``leaf`` in ``mesh.world`` equal shards along ``dim``, shard ``i``
+    on ``mesh.devices[i]``."""
+    if leaf.shape[dim] % mesh.world:
+        raise ValueError(f"leaf {name}: dim {dim} of {tuple(leaf.shape)} "
+                         f"does not split over {mesh.world} shards")
+    return [part.to(dev) for part, dev in
+            zip(leaf.chunk(mesh.world, dim), mesh.devices)]
 
 
 class CheckpointManager:
@@ -141,24 +155,36 @@ class CheckpointManager:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
     # ---- restore ----------------------------------------------------------
-    def restore(self, step: int, template, *, verify: bool = False):
+    def restore(self, step: int, template, *, placements=None,
+                verify: bool = False):
         """Load ``step`` into the structure of ``template``: a tensor leaf
         comes back as a tensor of its dtype on its device, an ``int`` leaf
         as an ``int``, anything else as a numpy array.
 
+        ``placements`` (the elastic path): a tree of ``template``'s
+        structure, or part of it, whose leaves place tensor leaves: a
+        device puts the leaf there; ``(mesh, dim)`` splits the whole
+        stored leaf along ``dim`` into ``mesh.world`` equal shards and
+        returns their list, shard ``i`` on ``mesh.devices[i]``; None (or
+        a missing entry) keeps the template's device.
+
         Raises:
             ValueError: ``verify`` and a leaf's SHA-1 differs from the
-                manifest's ("corrupt leaf"), or a shape differs from the
-                template's.
+                manifest's ("corrupt leaf"), a shape differs from the
+                template's, or a leaf's ``dim`` does not split evenly over
+                its mesh.
         """
         d = self._step_dir(step)
         with open(os.path.join(d, "MANIFEST.json")) as f:
             manifest = json.load(f)
         by_name = {rec["name"]: rec for rec in manifest["leaves"]}
 
-        def load(sub, prefix: str):
+        def load(sub, prefix: str, place):
             if isinstance(sub, Mapping):
-                return {k: load(v, f"{prefix}{k}/") for k, v in sub.items()}
+                return {k: load(v, f"{prefix}{k}/",
+                                place.get(k) if isinstance(place, Mapping)
+                                else None)
+                        for k, v in sub.items()}
             name = prefix[:-1]
             rec = by_name[name]
             arr = np.load(os.path.join(d, rec["file"]))
@@ -170,11 +196,13 @@ class CheckpointManager:
                     raise ValueError(f"leaf {name}: checkpoint shape "
                                      f"{arr.shape}, template "
                                      f"{tuple(sub.shape)}")
-                return torch.from_numpy(arr).to(device=sub.device,
-                                                dtype=sub.dtype)
+                leaf = torch.from_numpy(arr).to(dtype=sub.dtype)
+                if isinstance(place, tuple):
+                    return _split(leaf, *place, name)
+                return leaf.to(sub.device if place is None else place)
             return int(arr) if isinstance(sub, int) else arr
 
-        return load(template, "")
+        return load(template, "", placements)
 
     def metadata(self, step: int) -> dict:
         with open(os.path.join(self._step_dir(step), "MANIFEST.json")) as f:

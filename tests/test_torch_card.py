@@ -862,3 +862,87 @@ def test_qwen3_train_step_peak_below_card(card):
     assert report["params"] == 4_411_415_040
     assert 0 < report["losses"][0] - math.log(151936) < 1.5
     assert report["peak_bytes"] < total
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [4, 8])
+def test_halo_gather_card_equals_cpu(card, world):
+    """``halo_gather`` over ``world`` shards on the card (round-robin over
+    its cards) gives the CPU's rows bit for bit, drops included, and its
+    gradient reaches the owners' rows as on the CPU."""
+    from repro_torch.core import halo
+    from repro_torch.launch.mesh import Mesh, make_host_mesh
+    rows, m, cap = 64, 300, 40
+    rng = np.random.default_rng(world)
+    x = rng.normal(size=(world * rows, 16)).astype(np.float32)
+    want = [rng.integers(-1, world * rows, m).astype(np.int32)
+            for _ in range(world)]
+    outs, grads = [], []
+    for mesh in (make_host_mesh(world, device="cuda"),
+                 Mesh(("cpu",) * world)):
+        xt = torch.tensor(x, device=mesh.devices[0], requires_grad=True)
+        xs = [part.to(dev) for part, dev in zip(xt.split(rows),
+                                                mesh.devices)]
+        got = halo.halo_gather(xs, [torch.from_numpy(w) for w in want],
+                               mesh=mesh, rows_per_shard=rows, cap_pp=cap)
+        sum(g.sum().cpu() * (i + 1) for i, g in enumerate(got)).backward()
+        outs.append(torch.stack([g.cpu() for g in got]))
+        grads.append(xt.grad.cpu())
+    assert torch.equal(outs[0], outs[1])
+    torch.testing.assert_close(grads[0], grads[1], rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_gin_halo_loss_through_segment_spmm_on_card(card):
+    """The sharded GIN-TU loss at 4 shards on the card: 5 + 4
+    ``segment_spmm`` launches a card, the unsharded loss's value (no id
+    dropped: the same rows summed in the same order), and within 1e-5 of
+    the CPU's sharded loss."""
+    from repro_torch.configs import gin_tu, gnn_common
+    from repro_torch.launch.mesh import Mesh, make_host_mesh
+    info = dict(nodes=2048, edges=16384, d_feat=32, classes=7, graphs=None)
+    losses = {}
+    for dev, mesh in (("cuda", make_host_mesh(4, device="cuda")),
+                      ("cpu", Mesh(("cpu",) * 4))):
+        model = gin_tu._init(torch.Generator().manual_seed(0), 32, 7,
+                             "custom", device=dev)
+        batch = gnn_common.make_concrete_batch(info, seed=0, device="cpu")
+        cell = gnn_common.build_halo_cell(gin_tu.ARCH.adapter, info,
+                                          "custom", mesh, cap_pp=4096)
+        sp_pkg.LAUNCHES.reset()
+        loss = cell.loss(model, cell.shard(batch))
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert sp_pkg.LAUNCHES.value == 9 * len(cell.ctx.groups)
+            whole = gin_tu._loss(model, {k: v.to(dev) for k, v in
+                                         batch.items()}, info, "custom")
+            assert abs(float(loss.detach()) - float(whole.detach())) <= 1e-6
+        assert cell.ctx.stats["dropped_ids"] == 0
+        losses[dev] = float(loss.detach())
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_large_smem_kernels_launch_on_every_card(card):
+    """``segment_spmm`` at d 100 and 128 and ``embedding_bag`` over bags of
+    500 at d 128 ask for more than 48 KB of shared memory a block, which
+    each card must allow before its first launch there (the limit is a
+    per-device attribute): card by card, in order, each equals its plain
+    version bit for bit."""
+    rng = np.random.default_rng(7)
+    for i in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", i)
+        ids = torch.from_numpy(rng.integers(-1, 3000, (500, 40))
+                               .astype(np.int32)).to(dev)
+        for d in (100, 128):
+            feat = torch.from_numpy(rng.normal(size=(3000, d))
+                                    .astype(np.float32)).to(dev)
+            assert torch.equal(sp_ops.segment_spmm(ids, feat),
+                               sp_ref.segment_spmm_plain(ids, feat)), (i, d)
+        table = torch.from_numpy(rng.normal(size=(3000, 128))
+                                 .astype(np.float32)).to(dev)
+        bags = torch.from_numpy(rng.integers(-1, 3000, (64, 500))
+                                .astype(np.int32)).to(dev)
+        assert torch.equal(eb_ops.embedding_bag(table, bags, None),
+                           eb_ref.embedding_bag_ref(table, bags, None)), i
