@@ -236,10 +236,31 @@ Phases (any failed check exits non-zero before the result line):
              activations against the fp64 witness within
              ``LM_BF16_LOSS_TOL`` (loss) and ``LM_BF16_GRAD_TOL``
              (gradients in norm).
-8. summary — one ``{"kernels": [...]}`` line (``launches_by_path`` splits
+8. figures — the paper's evaluation, last, after the earlier phases'
+             memory is freed: the eight modules of ``repro_torch.bench.run``
+             on ``cuda`` at the reference's sizes, then
+             ``placement_compare`` and ``feature_collection`` at
+             ogbn-products' size (2,449,029 nodes, average degree 25.26,
+             d 100), then ``calibration``, ``skew_robustness`` and
+             ``serve_throughput`` (600 requests, at once and paced) there,
+             each row on its own line, with every counter set to 0 just
+             before and read just after. Prints
+             ``tier_bandwidths``' table (with the card's name and power
+             limit). Every module must end ``ok``; the hash, degree, freq
+             and p3 plans must pass ``validate()``; every non-P3 store's
+             ``lookup`` (device tiers only and with host rows) and
+             ``lookup_hops`` must equal the features indexed on the host
+             bit for bit; ``tiered_gather`` must have launched exactly once
+             for each ``lookup_hops`` the figures' stores served, and no
+             other kernel at all. Then ``tiered_gather`` at each
+             products-size store's largest call, bitwise to its plain
+             version, timed beside it, ``index_select``, its bound and the
+             launch floor. One ``{"figures": ...}`` line.
+9. summary — one ``{"kernels": [...]}`` line (``launches_by_path`` splits
              ``embedding_bag``'s and ``segment_spmm``'s launches by path:
              ``segment_spmm``'s GIN-TU train, SAGE full graph and GIN-TU
-             halo),
+             halo; ``tiered_gather``'s GNN serve and the paper's figures,
+             whose products-size calls are under ``paper_figures``),
              then the result line
              ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -3216,6 +3237,177 @@ def lm_train_phase() -> None:
         "bf16_grad_norm_rel": num / den}}), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 8
+# ---------------------------------------------------------------------------
+FIGURE_STORES = ("quiver", "hash", "degree", "freq")  # placement_compare's
+FIGURE_PRODUCTS = ("placement_compare", "feature_collection")
+# the serving figures at products' size: their gathers are counted, not
+# captured (FIGURE_PRODUCTS' stores are the timed calls)
+FIGURE_SERVE_PRODUCTS = ("calibration", "skew_robustness", "serve_throughput")
+
+
+def capture_figure_gathers() -> tuple:
+    """Wrap the store's ``tiered_gather`` so that each distinct (hot, warm)
+    pair keeps its largest call's arguments, in order of first use.
+    Returns ``(calls, restore)``; the kept tensors hold their stores'
+    device rows until ``calls`` is dropped."""
+    from repro_torch.core import feature_store as fs
+    original = fs.tiered_gather
+    calls: dict = {}
+
+    def wrapped(tier, slot, hot, warm):
+        key = (id(hot), id(warm))
+        if key not in calls or tier.shape[0] > calls[key][0].shape[0]:
+            calls[key] = (tier, slot, hot, warm)
+        return original(tier, slot, hot, warm)
+
+    fs.tiered_gather = wrapped
+
+    def restore():
+        fs.tiered_gather = original
+    return calls, restore
+
+
+def figure_gather_row(name: str, args) -> dict:
+    """``tiered_gather`` at one figure store's largest call: bitwise to its
+    plain version (twice), then kernel, plain version and ``index_select``
+    on the concatenated tables timed (CUDA graph replays), beside the bound
+    (ids and tier/slot read once, each distinct row read once, the output
+    written once)."""
+    import torch
+    from repro_torch.kernels import tiered_gather as tg
+    tier, slot, hot, warm = args
+    got = tg.tiered_gather_cuda(tier, slot, hot, warm)
+    again = tg.tiered_gather_cuda(tier, slot, hot, warm)
+    want = tg.tiered_gather_ref(tier, slot, hot, warm)
+    torch.cuda.synchronize()
+    check(torch.equal(bits(got), bits(want))
+          and torch.equal(bits(again), bits(got)),
+          f"tiered_gather != plain by bits at the {name} store's call")
+    m, d = tier.shape[0], hot.shape[1]
+    elem = hot.element_size()
+    table = torch.cat([hot, warm, hot.new_zeros((1, d))])
+    h_rows, w_rows = hot.shape[0], warm.shape[0]
+    sl = slot.long()
+    lib_idx = torch.where(tier == 0, sl.clamp(0, h_rows - 1),
+                          torch.where(tier == 1,
+                                      h_rows + sl.clamp(0, w_rows - 1),
+                                      h_rows + w_rows))
+    read_rows = distinct_rows(tier, slot, (hot, warm))
+    nbytes = 8 * m + read_rows * d * elem + m * d * elem
+    row = {"m": m, "d": d, "distinct_rows": read_rows,
+           "device_rows": int(((tier == 0) | (tier == 1)).sum()),
+           "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "ms": time_ms(lambda: tg.tiered_gather_cuda(tier, slot, hot,
+                                                       warm)),
+           "plain_ms": time_ms(lambda: tg.tiered_gather_ref(tier, slot, hot,
+                                                            warm)),
+           "library_ms": time_ms(lambda: torch.index_select(table, 0,
+                                                            lib_idx))}
+    log(f"tiered_gather at the {name} store's call (M {m}, d {d}, "
+        f"{row['device_rows']} HOT/WARM rows, {read_rows} distinct): "
+        f"kernel {row['ms']:.5f} ms, plain {row['plain_ms']:.5f} ms, "
+        f"index_select {row['library_ms']:.5f} ms, bound "
+        f"{row['bound_ms']:.5f} ms ({nbytes} bytes)")
+    return row
+
+
+def figures_phase(tg_entry: dict) -> None:
+    """The paper's figures through ``repro_torch.bench.run`` on the card:
+    the eight modules at the reference's sizes, then ``placement_compare``
+    and ``feature_collection`` at ogbn-products' size, then
+    ``calibration``, ``skew_robustness`` and ``serve_throughput`` there
+    (600 requests, at once and paced), every counter set to 0 just
+    before and read just after. Every module must end ``ok``
+    (placement_compare and feature_collection hold each store's reads to
+    the features bit for bit, and validate the plans); ``tiered_gather``
+    must have launched once for each ``lookup_hops`` the figures' stores
+    served, and no other kernel at all. Then ``tiered_gather`` at each
+    products-size store's largest call against its plain version, its
+    bound, ``index_select`` and the launch floor."""
+    import torch
+    from repro_torch.bench import common as bench_common
+    from repro_torch.bench import run as bench_run
+    from repro_torch.kernels import (embedding_bag, flash_attention,
+                                     gather_aggregate, segment_spmm,
+                                     tiered_gather)
+
+    bw = bench_common.tier_bandwidths("cuda")
+    for line in bench_common.format_bandwidths(bw).splitlines():
+        log(line)
+    print(json.dumps({"tier_bandwidths": bw}), flush=True)
+    counters = (tiered_gather, gather_aggregate, embedding_bag, segment_spmm,
+                flash_attention)
+    for m in counters:
+        m.LAUNCHES.reset()
+    check(sorted(FIGURE_PRODUCTS + FIGURE_SERVE_PRODUCTS)
+          == sorted(bench_run.SIZES["products"]),
+          f"phase 8 runs {FIGURE_PRODUCTS + FIGURE_SERVE_PRODUCTS} at the "
+          f"products size, the runner {sorted(bench_run.SIZES['products'])}")
+    status = {}
+    for size, names, capture in (
+            ("reference", bench_run.MODULES, False),
+            ("products", FIGURE_PRODUCTS, True),
+            ("products", FIGURE_SERVE_PRODUCTS, False)):
+        t0 = time.perf_counter()
+        if capture:
+            calls, restore = capture_figure_gathers()
+        try:
+            ran = bench_run.run_modules(names, device="cuda", size=size)
+        finally:
+            if capture:
+                restore()
+        status.setdefault(size, {}).update(ran)
+        log(f"figures at the {size} size in {time.perf_counter() - t0:.1f} "
+            f"s: " + ", ".join(f"{n} {s['status']} {s['seconds']:.1f} s"
+                               for n, s in ran.items()))
+        failed = [n for n, s in ran.items() if s["status"] != "ok"]
+        check(not failed, f"figure modules failed at the {size} size: "
+              f"{failed}")
+    counts = {k: c.value for k, c in kernel_launches().items()}
+    expected = sum(s["fused_lookups"] for run in status.values()
+                   for s in run.values())
+    log(f"figures: launches {counts}; lookup_hops served {expected}")
+    check(counts["tiered_gather"] == expected and expected > 0,
+          f"tiered_gather launched {counts['tiered_gather']} times for "
+          f"{expected} lookup_hops")
+    check(not any(v for k, v in counts.items() if k != "tiered_gather"),
+          f"the figures launched another kernel: {counts}")
+    for size, run in status.items():
+        pc = run["placement_compare"]
+        check(pc["validated"] == ["degree", "freq", "hash", "p3", "quiver"],
+              f"placement_compare validated {pc['validated']} ({size})")
+        check(sorted(pc["bitwise_ids"]) == sorted(FIGURE_STORES),
+              f"placement_compare checked {pc['bitwise_ids']} ({size})")
+        check(run["feature_collection"]["bitwise_ids"].get("quiver", 0) > 0,
+              f"feature_collection unchecked ({size})")
+        log(f"figures[{size}]: hash/degree/freq/p3 plans validated; "
+            f"lookups bitwise to the features (ids checked) "
+            f"{pc['bitwise_ids']}, feature_collection "
+            f"{run['feature_collection']['bitwise_ids']}")
+    names = FIGURE_STORES + ("feature_collection",)
+    check(len(calls) == len(names),
+          f"{len(calls)} stores launched tiered_gather at the products "
+          f"size, {len(names)} expected")
+    rows = {name: figure_gather_row(name, args)
+            for name, args in zip(names, calls.values())}
+    del calls
+    one = torch.zeros(1, device="cuda")
+    floor_ms = time_ms(lambda: one.add_(1))
+    log(f"launch floor (an in-place add on one element): {floor_ms:.5f} ms")
+    tg_entry["launches"] += counts["tiered_gather"]
+    tg_entry["launches_by_path"] = {"gnn_serve": tg_entry["launches"]
+                                    - counts["tiered_gather"],
+                                    "paper_figures": counts["tiered_gather"]}
+    tg_entry["paper_figures"] = {"products": rows, "floor_ms": floor_ms}
+    print(json.dumps({"figures": {
+        size: {n: {"status": s["status"], "seconds": s["seconds"],
+                   "fused_lookups": s["fused_lookups"]}
+               for n, s in run.items()} for size, run in status.items()},
+        "card": bw["card"]}), flush=True)
+
+
 def main() -> None:
     import torch
     t_start = time.perf_counter()
@@ -3345,13 +3537,20 @@ def main() -> None:
     t0 = time.perf_counter()
     lm_train_phase()
     log(f"lm train phase in {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 8. summary
+    # 8. the paper's figures
+    t0 = time.perf_counter()
+    figures_phase(next(r for r in results if r["name"] == "tiered_gather"))
+    log(f"figures phase in {time.perf_counter() - t0:.1f} s")
+
+    # 9. summary
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("design", "floor_ms", "tflops", "over_bound", "over_library",
-             MOE_KEY, "launches_by_path")
+             MOE_KEY, "launches_by_path", "paper_figures")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
         for r in results]}), flush=True)

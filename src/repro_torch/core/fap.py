@@ -5,7 +5,10 @@
 computed with K transposed SpMV passes (``segment_sum_ordered``: each
 node's terms in edge order, so the card gives the CPU's bits).
 ``truncated`` damps each step by the fanout acceptance ratio
-``min(deg, l_k)/deg``.
+``min(deg, l_k)/deg``. :func:`monte_carlo_fap` counts the accesses of the
+real sampler on the host (numpy, draw for draw the reference's oracle):
+its ranking is what :func:`compute_fap` must match, and the training-
+frequency placement baseline ranks by it.
 """
 from __future__ import annotations
 
@@ -39,3 +42,37 @@ def compute_fap(graph, fanouts: Sequence[int], *,
         w = segment_sum_ordered((w * rate)[src], dst, n)
         total = total + w
     return total.cpu().numpy()
+
+
+def monte_carlo_fap(graph, fanouts: Sequence[int], *, requests: int = 2000,
+                    seed: int = 0,
+                    seed_prob: Optional[np.ndarray] = None) -> np.ndarray:
+    """Empirical access frequency of every node over ``requests`` sampled
+    requests (one seed each, drawn from ``seed_prob`` or uniformly), as
+    float64 counts over ``requests``. Host numpy; the same graph and seed
+    give the reference's array bit for bit."""
+    rng = np.random.default_rng(seed)
+    n = graph.num_nodes
+    counts = np.zeros((n,), dtype=np.float64)
+    indptr, indices = graph.indptr, graph.indices
+    p = seed_prob / seed_prob.sum() if seed_prob is not None else None
+    seeds = rng.choice(n, size=requests, p=p)
+    for s in seeds:
+        frontier = [s]
+        counts[s] += 1
+        for fan in fanouts:
+            nxt = []
+            for v in frontier:
+                a, b = indptr[v], indptr[v + 1]
+                deg = b - a
+                if deg == 0:
+                    continue
+                if deg <= fan:
+                    nxt.extend(indices[a:b].tolist())
+                else:
+                    nxt.extend(indices[a + rng.integers(0, deg, size=fan)]
+                               .tolist())
+            for u in nxt:
+                counts[u] += 1
+            frontier = nxt
+    return counts / requests

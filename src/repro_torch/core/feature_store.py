@@ -270,7 +270,15 @@ class TieredFeatureStore:
         np.cumsum(hcounts[:-1], out=hbase[1:])
         host = np.zeros((max(int(hcounts.sum()), 1), d), features.dtype)
         hpod = np.maximum(plan.pod_owner[host_ids], 0)
-        host[hbase[hpod] + plan.slot[host_ids]] = features[host_ids]
+        # a pod's rows in (slot, id) order: a plan that numbers a pod's
+        # HOST slots 0..k-1 (every Quiver plan) keeps hbase + slot, and
+        # ``hash_placement``, which numbers them per device so a pod's
+        # devices share slot numbers, gets a row per id all the same
+        order = np.lexsort((host_ids, plan.slot[host_ids], hpod))
+        first = np.searchsorted(hpod[order], hpod[order])
+        host_rows = np.empty_like(host_ids)
+        host_rows[order] = hbase[hpod[order]] + np.arange(order.size) - first
+        host[host_rows] = features[host_ids]
 
         disk_ids = np.flatnonzero(plan.tier == TIER_DISK)
         disk_rows = np.zeros((max(disk_ids.shape[0], 1), d), features.dtype)
@@ -279,7 +287,7 @@ class TieredFeatureStore:
 
         slot_flat = plan.slot.copy()
         slot_flat[warm_ids] = warm_rows
-        slot_flat[host_ids] = hbase[hpod] + plan.slot[host_ids]
+        slot_flat[host_ids] = host_rows
         tier_np = plan.tier.astype(np.int32)
         slot_np = slot_flat.astype(np.int32)
         return TieredFeatureStore(

@@ -1,14 +1,17 @@
 """Workload-aware feature placement (paper §5.2): numpy copy of the
 reference's ``core/placement.py`` (``quiver_placement``, its types,
-``migration_pairs`` for serve-time re-placement, and ``expert_placement``,
-FAP's analogue for MoE experts).
+``migration_pairs`` for serve-time re-placement, the Fig. 15 baselines
+``hash_placement`` (DGL), ``degree_placement`` (AliGraph),
+``freq_placement`` (GNNLab/PaGraph) and ``p3_placement`` (P3), and
+``expert_placement``, FAP's analogue for MoE experts).
 
 Tiers: HOT rows are replicated in every device's memory, WARM rows are
 partitioned across devices, HOST rows live in host RAM and DISK rows in
 the spill tier. The algorithm is the paper's steps (i)–(v): sort by FAP,
 compute per-device capacity, partition-vs-replicate depending on the
 interconnect, then balance aggregated FAP per device with a snake
-assignment. The same FAP array gives the same plan, bit for bit, in both
+assignment. The same FAP array (or node count, degrees, training
+counts) gives the same plan, bit for bit and dtype for dtype, in both
 packages.
 """
 from __future__ import annotations
@@ -211,6 +214,63 @@ def migration_pairs(current_tier: np.ndarray, target_tier: np.ndarray,
             if len(pairs) >= budget:
                 break
     return pairs
+
+
+# ---------------------------------------------------------------------------
+# Baselines (Fig. 15)
+# ---------------------------------------------------------------------------
+def hash_placement(num_nodes: int, topo: TopologySpec) -> PlacementPlan:
+    """DGL-style hash partitioning: workload-agnostic, node id modulo device.
+    Each device keeps the first N_g of its hashed rows in device memory
+    (WARM), the rest on the host."""
+    n = num_nodes
+    ids = np.arange(n, dtype=np.int64)
+    h = (ids * 2654435761) % (2 ** 31)
+    world = topo.num_pods * topo.devices_per_pod
+    owner = (h % world).astype(np.int64)
+    pod_owner = (owner // topo.devices_per_pod).astype(np.int16)
+    device_owner = (owner % topo.devices_per_pod).astype(np.int16)
+    tier = np.full(n, TIER_HOST, dtype=np.int8)
+    slot = np.zeros(n, dtype=np.int64)
+    for w in range(world):
+        m = owner == w
+        r = np.arange(int(m.sum()))
+        tier[np.flatnonzero(m)[r < topo.rows_per_device]] = TIER_WARM
+        slot[m] = np.where(r < topo.rows_per_device, r,
+                           r - topo.rows_per_device)
+    return PlacementPlan(tier=tier, pod_owner=pod_owner,
+                         device_owner=device_owner, slot=slot, topology=topo,
+                         n_hot=0, warm_rows_per_device=topo.rows_per_device,
+                         host_rows_per_pod=topo.rows_host, name="hash")
+
+
+def degree_placement(out_degree: np.ndarray,
+                     topo: TopologySpec) -> PlacementPlan:
+    """AliGraph-style: importance = node degree (a workload-agnostic
+    ranking), placed by the Quiver algorithm."""
+    return quiver_placement(out_degree.astype(np.float32), topo, name="degree")
+
+
+def freq_placement(train_counts: np.ndarray,
+                   topo: TopologySpec) -> PlacementPlan:
+    """GNNLab/PaGraph-style: rank by *training-time* access frequency. The
+    paper's point (§2.3): training seeds are uniform, serving seeds are
+    skewed, so this ranking deviates from serving-time access
+    probability."""
+    return quiver_placement(train_counts.astype(np.float32), topo, name="freq")
+
+
+def p3_placement(num_nodes: int, topo: TopologySpec) -> PlacementPlan:
+    """P3-style: partition the feature *dimension*: every node's feature is
+    split across all devices, so every lookup touches every device."""
+    n = num_nodes
+    return PlacementPlan(
+        tier=np.full(n, TIER_WARM, dtype=np.int8),
+        pod_owner=np.full(n, -1, dtype=np.int16),
+        device_owner=np.zeros(n, dtype=np.int16),
+        slot=np.arange(n, dtype=np.int64), topology=topo, n_hot=0,
+        warm_rows_per_device=n, host_rows_per_pod=0, dim_sharded=True,
+        name="p3")
 
 
 # ---------------------------------------------------------------------------

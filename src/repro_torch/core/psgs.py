@@ -11,7 +11,10 @@ expected number of sampled slots the real sampler produces:
     Q[i]    = 1 + s_1[i]
 
 The output is the O(|V|) lookup table the router consults in O(1) per
-seed (paper §4.2.2), returned as numpy.
+seed (paper §4.2.2), returned as numpy. :func:`monte_carlo_psgs` runs the
+real sampler on the host (numpy, draw for draw the reference's oracle) and
+is what ``mode="branching"`` converges to; :func:`batch_psgs` accumulates
+the table over a request batch.
 """
 from __future__ import annotations
 
@@ -60,3 +63,41 @@ def compute_psgs(graph, fanouts: Sequence[int], *, mode: str = "branching",
         q = 1.0 + s
     return q.cpu().numpy()
 
+
+
+def monte_carlo_psgs(graph, node: int, fanouts: Sequence[int], *,
+                     trials: int = 200, seed: int = 0) -> float:
+    """Brute-force PSGS by running the sampler ``trials`` times from
+    ``node``: the expected number of sampled slots, multiplicity included
+    (the oracle of ``mode="branching"``). Host numpy; the same graph and
+    seed give the reference's float bit for bit."""
+    rng = np.random.default_rng(seed)
+    indptr, indices = graph.indptr, graph.indices
+    total = 0
+    for _ in range(trials):
+        count = 1
+        frontier = [node]
+        for fan in fanouts:
+            nxt = []
+            for v in frontier:
+                s, e = indptr[v], indptr[v + 1]
+                deg = e - s
+                if deg == 0:
+                    continue
+                if deg <= fan:
+                    nxt.extend(indices[s:e].tolist())
+                else:
+                    nxt.extend(indices[s + rng.integers(0, deg, size=fan)]
+                               .tolist())
+            count += len(nxt)
+            frontier = nxt
+        total += count
+    return total / trials
+
+
+def batch_psgs(psgs_table: np.ndarray, seeds: np.ndarray) -> float:
+    """Accumulated PSGS of a request batch (paper §4.2.2): O(1) per seed,
+    ``-1`` padding ignored."""
+    seeds = np.asarray(seeds)
+    valid = seeds >= 0
+    return float(psgs_table[seeds[valid]].sum())
