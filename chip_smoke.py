@@ -256,11 +256,38 @@ Phases (any failed check exits non-zero before the result line):
              products-size store's largest call, bitwise to its plain
              version, timed beside it, ``index_select``, its bound and the
              launch floor. One ``{"figures": ...}`` line.
+8b. serving — the eight serving benchmarks of ``repro_torch.bench.run``
+             (``fused_gather``, ``gather_aggregate``, ``prefetch``,
+             ``sharded_hierarchy`` at 4 logical shards, ``flash_crowd``,
+             ``gateway_soak``, ``multi_model``, ``workload_drift``) on
+             ``cuda`` at the reference's full sizes, one at a time, every
+             counter set to 0 just before and read just after. Each must
+             end ``ok``, its in-run assertions holding on the card (fused
+             == per-hop, staged == unstaged, spill-backed and cached ==
+             all-HOT, sharded == single-host with one exchange of distinct
+             ids, the gateway's outcomes partitioning the requests and its
+             interactive p99 below FIFO's). Every module but
+             ``sharded_hierarchy`` must have made ``lookup_hops`` calls
+             and launched ``tiered_gather``; ``sharded_hierarchy`` none
+             (its shards gather for themselves). ``tiered_gather`` must
+             have launched once for each ``lookup_hops`` made with no
+             device cache attached (with one attached, at most once a
+             call); ``gather_aggregate`` once for each
+             ``lookup_aggregate``, in ``gather_aggregate`` only (its
+             autotune's launches counted apart); no other kernel at all.
+             Then every launch shape ``autotune_gather_aggregate`` sweeps,
+             at the module's inputs and at d 16, 64 and 256
+             (``AUTOTUNE_SHAPE``), bitwise to the plain version, with each
+             one's µs, the chosen plan, the bound and ``F.embedding_bag``.
+             One ``{"serving_benches": ...}`` line.
 9. summary — one ``{"kernels": [...]}`` line (``launches_by_path`` splits
              ``embedding_bag``'s and ``segment_spmm``'s launches by path:
              ``segment_spmm``'s GIN-TU train, SAGE full graph and GIN-TU
-             halo; ``tiered_gather``'s GNN serve and the paper's figures,
-             whose products-size calls are under ``paper_figures``),
+             halo; ``tiered_gather``'s GNN serve, the paper's figures,
+             whose products-size calls are under ``paper_figures``, and
+             each serving benchmark (``bench/<module>``);
+             ``gather_aggregate``'s GNN serve and its benchmark, with the
+             autotune's rows under ``autotune``),
              then the result line
              ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -475,8 +502,8 @@ def distinct_rows(tier, slot, tables):
 def bits(x):
     """``x``'s bits as integers: equal bits, not equal values (-0.0 is not
     +0.0 here)."""
-    import torch
-    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+    from repro_torch.kernels.build import int_bits
+    return int_bits(x)
 
 
 def negative_zeros(table):
@@ -3347,7 +3374,7 @@ def figures_phase(tg_entry: dict) -> None:
           f"products size, the runner {sorted(bench_run.SIZES['products'])}")
     status = {}
     for size, names, capture in (
-            ("reference", bench_run.MODULES, False),
+            ("reference", bench_run.FIGURES, False),
             ("products", FIGURE_PRODUCTS, True),
             ("products", FIGURE_SERVE_PRODUCTS, False)):
         t0 = time.perf_counter()
@@ -3406,6 +3433,237 @@ def figures_phase(tg_entry: dict) -> None:
                    "fused_lookups": s["fused_lookups"]}
                for n, s in run.items()} for size, run in status.items()},
         "card": bw["card"]}), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 8b
+# ---------------------------------------------------------------------------
+# the autotune's widths and shape beside the module's own inputs: the
+# launcher's --fuse-aggregate call (2,272 segments of fan 5, phase 3)
+AUTOTUNE_DIMS = (16, 64, 256)
+AUTOTUNE_SHAPE = (2272, 5)
+
+
+def count_store_calls() -> tuple:
+    """Count the single-host store's ``lookup_hops`` calls (those made
+    with a device cache attached apart: their cold ids may all hit the
+    cache, and then no gather launches) and its ``lookup_aggregate``
+    calls. Returns ``(counts, restore)``."""
+    import threading
+    from repro_torch.core.feature_store import TieredFeatureStore as Store
+    hops, agg = Store.lookup_hops, Store.lookup_aggregate
+    counts = {"lookup_hops": 0, "lookup_hops_cached": 0,
+              "lookup_aggregate": 0}
+    lock = threading.Lock()
+
+    def bump(key):
+        with lock:
+            counts[key] += 1
+
+    def lookup_hops(self, *args, **kwargs):
+        bump("lookup_hops" if self.cache is None else "lookup_hops_cached")
+        return hops(self, *args, **kwargs)
+
+    def lookup_aggregate(self, *args, **kwargs):
+        bump("lookup_aggregate")
+        return agg(self, *args, **kwargs)
+
+    Store.lookup_hops, Store.lookup_aggregate = lookup_hops, lookup_aggregate
+
+    def restore():
+        Store.lookup_hops, Store.lookup_aggregate = hops, agg
+    return counts, restore
+
+
+def hold_plans(tier, slot, hot, warm, cold, what: str) -> int:
+    """Every launch shape the autotune sweeps on these inputs gives the
+    default plan's and the plain version's bits (compared as integers).
+    Returns the plans held."""
+    import torch
+    from repro_torch.kernels.build import sm_count
+    from repro_torch.kernels.gather_aggregate import autotune, kernel, ref
+    want = ref.gather_aggregate_ref(tier, slot, hot, warm, cold)
+    default = kernel.gather_aggregate_cuda(tier, slot, hot, warm, cold)
+    addr = (hot.data_ptr() | warm.data_ptr() | cold.data_ptr()
+            | default.data_ptr())
+    plans = autotune.candidate_plans(hot.shape[1], hot.element_size(), addr,
+                                     tier.shape[0], sm_count(hot.device))
+    torch.cuda.synchronize()
+    check(torch.equal(bits(default), bits(want)),
+          f"gather_aggregate default plan != plain by bits ({what})")
+    for plan in plans:
+        got = kernel.gather_aggregate_cuda(tier, slot, hot, warm, cold,
+                                           plan=plan)
+        torch.cuda.synchronize()
+        check(torch.equal(bits(got), bits(want)),
+              f"gather_aggregate plan {autotune.plan_key(plan)} != plain by "
+              f"bits ({what})")
+    return len(plans)
+
+
+def autotune_row(tier, slot, hot, warm, cold, what: str) -> dict:
+    """The autotune on these inputs (every candidate held bitwise first),
+    beside the bound (ids read once, each distinct row once, the output
+    once; a valid child's adds at the fp32 rate) and ``F.embedding_bag``
+    on the concatenated tables."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.gather_aggregate import autotune
+    n_plans = hold_plans(tier, slot, hot, warm, cold, what)
+    tune = autotune.autotune_gather_aggregate(tier, slot, hot, warm, cold)
+    s, fan = tier.shape
+    d, elem = hot.shape[1], hot.element_size()
+    read_rows = distinct_rows(tier, slot, (hot, warm, cold))
+    nbytes = 8 * s * fan + read_rows * d * elem + s * d * elem
+    flops = int(((tier >= 0) & (tier <= 2)).sum()) * d
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+    table = torch.cat([hot, warm, cold, hot.new_zeros((1, d))])
+    h_rows, w_rows, c_rows = hot.shape[0], warm.shape[0], cold.shape[0]
+    sl = slot.long()
+    lib_idx = torch.where(
+        tier == 0, sl.clamp(0, h_rows - 1), torch.where(
+            tier == 1, h_rows + sl.clamp(0, w_rows - 1), torch.where(
+                tier == 2, h_rows + w_rows + sl.clamp(0, c_rows - 1),
+                h_rows + w_rows + c_rows)))
+    library_ms = time_ms(lambda: F.embedding_bag(lib_idx, table, mode="sum"))
+    key = "{vec_bytes}x{lanes}x{blocks}"
+    best, default = tune["best"], tune["default"]
+    row = {"shape": [s, fan, d], "plans": n_plans,
+           "timings_us": tune["timings_us"], "best": best,
+           "default": default,
+           "best_us": tune["timings_us"][key.format(**best)],
+           "default_us": tune["timings_us"][key.format(**default)],
+           "bound_ms": bound_ms, "bytes": nbytes, "library_ms": library_ms,
+           "launches": tune["launches"]}
+    log(f"gather_aggregate autotune at {what} (S {s}, fan {fan}, d {d}): "
+        + ", ".join(f"{k} {v:.3f} us" for k, v in tune["timings_us"].items()))
+    log(f"  {n_plans} plans bitwise to plain; chosen {key.format(**best)} "
+        f"{row['best_us']:.3f} us, default {key.format(**default)} "
+        f"{row['default_us']:.3f} us; bound {bound_ms * 1e3:.3f} us "
+        f"({nbytes} bytes); F.embedding_bag {library_ms * 1e3:.3f} us")
+    return row
+
+
+def serving_benches_phase(tg_entry: dict, ga_entry: dict) -> None:
+    """The eight serving benchmarks of ``repro_torch.bench.run`` on the card
+    at the reference's full sizes, one at a time, every launch counter set
+    to 0 just before each and read just after. Each must end ``ok`` (its
+    in-run assertions held on the card); every module but
+    ``sharded_hierarchy`` must have made ``lookup_hops`` calls and
+    launched ``tiered_gather`` (``sharded_hierarchy``: none, by design);
+    ``tiered_gather`` must have launched once for each ``lookup_hops``
+    made with no device cache attached (with one attached, at most once a
+    call); ``gather_aggregate`` once for each ``lookup_aggregate``,
+    in the ``gather_aggregate`` module only (where the autotune's own
+    launches are counted apart); no other kernel at all. Then every plan
+    the autotune sweeps, at the module's inputs and at d 16, 64 and 256,
+    held to the plain version bit for bit, with the timings, the chosen
+    plan, the bound and ``F.embedding_bag``."""
+    import torch
+    from repro_torch.bench import common as bench_common
+    from repro_torch.bench import gather_aggregate as ga_bench
+    from repro_torch.bench import run as bench_run
+
+    counters = kernel_launches()
+    tune_calls: list = []
+    original_tune = ga_bench.autotune_gather_aggregate
+
+    def recorded_tune(*args, **kwargs):
+        out = original_tune(*args, **kwargs)
+        tune_calls.append((args, out))
+        return out
+
+    status, paths = {}, {}
+    ga_bench.autotune_gather_aggregate = recorded_tune
+    try:
+        for name in bench_run.SERVING:
+            for c in counters.values():
+                c.reset()
+            calls, restore = count_store_calls()
+            try:
+                ran = bench_run.run_modules([name], device="cuda")[name]
+            finally:
+                restore()
+            launches = {k: c.value for k, c in counters.items()}
+            status[name] = ran
+            log(f"serving bench {name}: {ran['status']} in "
+                f"{ran['seconds']:.1f} s; launches {launches}; store calls "
+                f"{calls}")
+            check(ran["status"] == "ok", f"serving bench {name} failed")
+            tg, ga = launches["tiered_gather"], launches["gather_aggregate"]
+            uncached, cached = calls["lookup_hops"], calls["lookup_hops_cached"]
+            if name == "sharded_hierarchy":
+                # by design: the sharded store's shards answer with their
+                # own gathers, and the single-host source store is read
+                # only through per-hop lookup, never lookup_hops
+                check(uncached == cached == tg == 0,
+                      f"{name}: {uncached} + {cached} lookup_hops and "
+                      f"{tg} tiered_gather launches, where none are made")
+            else:
+                check(uncached + cached > 0 and tg > 0,
+                      f"{name}: {uncached} + {cached} lookup_hops and {tg} "
+                      "tiered_gather launches: the module went round the "
+                      "store's fused lookup")
+            if cached:
+                check(uncached <= tg <= uncached + cached,
+                      f"{name}: tiered_gather launched {tg} times for "
+                      f"{uncached} lookup_hops without a cache and {cached} "
+                      "with one")
+            else:
+                check(tg == uncached,
+                      f"{name}: tiered_gather launched {tg} times for "
+                      f"{uncached} lookup_hops")
+            tuned = sum(out["launches"] for _, out in tune_calls) \
+                if name == "gather_aggregate" else 0
+            check(ga == calls["lookup_aggregate"] + tuned,
+                  f"{name}: gather_aggregate launched {ga} times for "
+                  f"{calls['lookup_aggregate']} lookup_aggregate and "
+                  f"{tuned} autotune calls")
+            check((calls["lookup_aggregate"] > 0) == (name == "gather_aggregate"),
+                  f"{name}: {calls['lookup_aggregate']} lookup_aggregate")
+            check(not any(v for k, v in launches.items()
+                          if k not in ("tiered_gather", "gather_aggregate")),
+                  f"{name} launched another kernel: {launches}")
+            paths[name] = {"tiered_gather": tg,
+                           "gather_aggregate": ga - tuned,
+                           "autotune": tuned, **calls}
+    finally:
+        ga_bench.autotune_gather_aggregate = original_tune
+    check(len(tune_calls) == 1,
+          f"the gather_aggregate module ran {len(tune_calls)} autotunes")
+
+    # every plan, at the module's inputs and at each width
+    args, _ = tune_calls[0]
+    tune = {"module": autotune_row(*args, "the module's inputs")}
+    del tune_calls
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    s, fan = AUTOTUNE_SHAPE
+    for d in AUTOTUNE_DIMS:
+        def table(rows):
+            return negative_zeros(torch.randn((rows, d), generator=gen,
+                                              device="cuda"))
+
+        hot, warm, cold = table(1000), table(3000), table(64)
+        tier = torch.randint(0, 4, (s, fan), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        tier[tier == 3] = 99
+        slot = torch.randint(-2, 3100, (s, fan), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        tune[f"d{d}"] = autotune_row(tier, slot, hot, warm, cold, f"d {d}")
+
+    for name, n in paths.items():
+        if n["tiered_gather"]:
+            tg_entry["launches_by_path"][f"bench/{name}"] = n["tiered_gather"]
+            tg_entry["launches"] += n["tiered_gather"]
+    ga_launches = paths["gather_aggregate"]["gather_aggregate"]
+    ga_entry["launches_by_path"] = {"gnn_serve": ga_entry["launches"],
+                                    "bench/gather_aggregate": ga_launches}
+    ga_entry["launches"] += ga_launches
+    ga_entry["autotune"] = tune
+    print(json.dumps({"serving_benches": {
+        "modules": {n: {**r, "launches": paths[n]} for n, r in status.items()},
+        "autotune": tune, "card": bench_common.card_name("cuda")}},
+        default=str), flush=True)
 
 
 def main() -> None:
@@ -3545,12 +3803,21 @@ def main() -> None:
     figures_phase(next(r for r in results if r["name"] == "tiered_gather"))
     log(f"figures phase in {time.perf_counter() - t0:.1f} s")
 
+    # 8b. the serving benchmarks
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serving_benches_phase(
+        next(r for r in results if r["name"] == "tiered_gather"),
+        next(r for r in results if r["name"] == "gather_aggregate"))
+    log(f"serving benches phase in {time.perf_counter() - t0:.1f} s")
+
     # 9. summary
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("design", "floor_ms", "tflops", "over_bound", "over_library",
-             MOE_KEY, "launches_by_path", "paper_figures")
+             MOE_KEY, "launches_by_path", "paper_figures", "autotune")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
         for r in results]}), flush=True)

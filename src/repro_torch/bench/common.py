@@ -29,6 +29,7 @@ from repro_torch.core import (TieredFeatureStore, TopologySpec,
 from repro_torch.core.placement import (TIER_DISK, TIER_HOST, TIER_HOT,
                                         TIER_WARM)
 from repro_torch.graph import power_law_graph
+from repro_torch.kernels.build import int_bits
 from repro_torch.launch import serve as launcher
 from repro_torch.serving import DeviceExecutor, HostExecutor, ServingEngine
 
@@ -99,12 +100,14 @@ def build_serving_stack(*, nodes: int = 6000, avg_degree: float = 10.0,
                         d_feat: int = 64, fanouts=(6, 4), seed: int = 0,
                         hot_frac: float = 0.25, rows_frac: float = 0.25,
                         distribution: str = "degree",
+                        spill_path: str | None = None,
                         device: str | torch.device = "cuda") -> dict:
-    """The skewed end-to-end stack the serving figures share, drawn from
+    """The skewed end-to-end stack the serving benchmarks share, drawn from
     ``seed`` as the reference harness draws it: power-law graph, features,
     PSGS and FAP (on ``device``), a one-device topology, the Quiver
     placement and its tiered store, and GraphSAGE 64-64 (weights from a
-    ``torch.Generator`` seeded with ``seed``)."""
+    ``torch.Generator`` seeded with ``seed``). ``spill_path`` backs the
+    DISK tier with a spill file."""
     dev = resolve_device(device)
     graph = power_law_graph(nodes, avg_degree, seed=seed)
     rng = np.random.default_rng(seed + 1)
@@ -118,7 +121,7 @@ def build_serving_stack(*, nodes: int = 6000, avg_degree: float = 10.0,
                         rows_host=max(int(nodes * 0.4), 64),
                         hot_replicate_fraction=hot_frac)
     store = TieredFeatureStore.build(feats, quiver_placement(fap, topo),
-                                     device=dev)
+                                     spill_path=spill_path, device=dev)
     infer_fn = launcher.make_model_infer_fn(d_feat, (64, 64), fanouts,
                                             seed=seed, device=dev)
     return dict(graph=graph, feats=feats, psgs=psgs, fap=fap, gen=gen,
@@ -147,25 +150,41 @@ def store_bytes(store) -> int:
                        else np.asarray(store.disk).nbytes)
 
 
-def make_executors(stack, *, num_workers: int = 2,
-                   max_batch: int = 128) -> dict:
+def make_executors(stack, *, num_workers: int = 2, max_batch: int = 128,
+                   fused: bool = True, fuse_aggregate: bool = False,
+                   infer_fn=None, store=None, rng_seed: int = 0) -> dict:
     """Host + device executor pair over a built stack, on its store's
-    device (fused lookups, the aggregate on the model's side)."""
-    g, store = stack["graph"], stack["store"]
-    host = HostExecutor(g, store, stack["fanouts"], stack["infer_fn"],
-                        capacity=num_workers, psgs_table=stack["psgs"])
+    device. ``fused=False`` takes the per-hop lookups, ``fuse_aggregate``
+    the gather→aggregate path (``store.lookup_aggregate``); ``infer_fn``
+    and ``store`` override the stack's (one pair a model over a shared or
+    copied store)."""
+    g = stack["graph"]
+    infer_fn = infer_fn if infer_fn is not None else stack["infer_fn"]
+    store = store if store is not None else stack["store"]
+    flags = dict(capacity=num_workers, psgs_table=stack["psgs"],
+                 fused=fused, fuse_aggregate=fuse_aggregate,
+                 rng_seed=rng_seed)
+    host = HostExecutor(g, store, stack["fanouts"], infer_fn, **flags)
     device = DeviceExecutor(g.device_arrays(store.device), store,
-                            stack["fanouts"], stack["infer_fn"],
-                            max_batch=max_batch, capacity=num_workers,
-                            psgs_table=stack["psgs"])
+                            stack["fanouts"], infer_fn, max_batch=max_batch,
+                            **flags)
     return {"host": host, "device": device}
 
 
-def make_engine(stack, router, *, num_workers: int = 2,
-                max_batch: int = 128) -> ServingEngine:
+def make_engine(stack, router, *, num_workers: int = 2, max_batch: int = 128,
+                fused: bool = True,
+                fuse_aggregate: bool = False) -> ServingEngine:
     """A serving engine over :func:`make_executors`' pair and ``router``."""
     return ServingEngine(make_executors(stack, num_workers=num_workers,
-                                        max_batch=max_batch), router)
+                                        max_batch=max_batch, fused=fused,
+                                        fuse_aggregate=fuse_aggregate),
+                         router)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal dtype, shape and bits (compared as integers, so -0.0 is not
+    +0.0)."""
+    return a.dtype == b.dtype and torch.equal(int_bits(a), int_bits(b))
 
 
 def fused_lookups(*stores) -> int:

@@ -1,4 +1,5 @@
-"""Runner of the paper-figure benchmarks, one module a table or figure.
+"""Runner of the benchmarks: the paper's tables and figures, and the
+serving benchmarks of Quiver's own mechanisms, one module each.
 
     PYTHONPATH=src python -m repro_torch.bench.run [--only NAME[,NAME...]] \
         [--device cuda|cpu] [--size reference|products] [--json-out PATH]
@@ -30,8 +31,21 @@ MODULES = [
     "placement_compare",   # Fig. 15
     "feature_collection",  # Fig. 16
     "serve_throughput",    # Fig. 9
+    "fused_gather",        # fused feature-collection hot path
+    "gather_aggregate",    # fused gather→aggregate layer-1 path
+    "prefetch",            # cold-tier staging vs critical-path fetches
+    "sharded_hierarchy",   # dedup exchange + per-shard staging/spill
+    "flash_crowd",         # device cache vs adaptive-only under drift
+    "gateway_soak",        # SLO-aware admission vs FIFO under overload
+    "multi_model",         # shared-store registry vs isolated engines
     "policy_cdf",          # Fig. 10
+    "workload_drift",      # online adaptation vs frozen placement
 ]
+# the serving benchmarks of Quiver's mechanisms; the rest are the paper's
+# eight tables and figures
+SERVING = ("fused_gather", "gather_aggregate", "prefetch", "sharded_hierarchy",
+           "flash_crowd", "gateway_soak", "multi_model", "workload_drift")
+FIGURES = [m for m in MODULES if m not in SERVING]
 # ogbn-products (2,449,029 nodes, 61,859,140 edges, 100 fp32 features)
 PRODUCTS = dict(nodes=2449029, avg_degree=25.26, d_feat=100)
 SIZES = {"reference": {},

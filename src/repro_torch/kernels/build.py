@@ -189,6 +189,12 @@ def call(device: torch.device, fn: ctypes._CFuncPtr, *args) -> int:
         return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
 
 
+def int_bits(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s bits as integers of its width (float32 as int32, bf16 as
+    int16): equal bits, not equal values (-0.0 is not +0.0)."""
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+
 def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of ``device`` (asked once per device)."""
     n = _sms.get(device.index)

@@ -44,9 +44,23 @@ def copy_plan(d: int, elem: int, addr: int, segments: int,
     return lane_plan(d, elem, addr, segments, sms, WARPS, MIN_BLOCKS)
 
 
+def check_plan(plan: LanePlan, d: int, elem: int, addr: int) -> None:
+    """Raise ValueError unless ``plan``'s vector width divides the address
+    of every row: ``addr`` (the tables' and the output's addresses OR-ed)
+    and the row's ``d * elem`` bytes. A misaligned vector load would fault
+    on the card; the C side refuses every other plan it cannot run
+    (a vector that does not tile the row, lanes not a power of two of at
+    most 32, no block) with ``cudaErrorInvalidValue``."""
+    if (addr | d * elem) % plan.vec_bytes:
+        raise ValueError(f"gather_aggregate: vec_bytes {plan.vec_bytes} "
+                         f"does not divide a {d * elem}-byte row at "
+                         f"address {addr:#x}")
+
+
 def gather_aggregate_cuda(tier: torch.Tensor, slot: torch.Tensor,
                           hot: torch.Tensor, warm: torch.Tensor,
-                          cold: torch.Tensor) -> torch.Tensor:
+                          cold: torch.Tensor, *,
+                          plan: LanePlan | None = None) -> torch.Tensor:
     """Launch the kernel on the current stream.
 
     Args:
@@ -55,6 +69,10 @@ def gather_aggregate_cuda(tier: torch.Tensor, slot: torch.Tensor,
         slot: ``(S, fan)`` int32 row index into the selected table.
         hot, warm, cold: ``(·, d)`` float32 or bfloat16 row tables on one
             CUDA device.
+        plan: the launch shape (``vec_bytes``, ``lanes``, ``blocks``);
+            :func:`copy_plan`'s when ``None``. Every valid plan gives the
+            same bits (the fold is ordered over the fan axis); only
+            ``autotune`` passes one.
 
     Returns:
         ``(S, d)`` per-segment sums in ``hot.dtype``, accumulated in fp32
@@ -80,8 +98,11 @@ def gather_aggregate_cuda(tier: torch.Tensor, slot: torch.Tensor,
         return out.zero_()
     hp, wp, cp, op = (hot.data_ptr(), warm.data_ptr(), cold.data_ptr(),
                       out.data_ptr())
-    plan = copy_plan(d, hot.element_size(), hp | wp | cp | op, s,
-                     sm_count(device))
+    addr = hp | wp | cp | op
+    if plan is None:
+        plan = copy_plan(d, hot.element_size(), addr, s, sm_count(device))
+    else:
+        check_plan(plan, d, hot.element_size(), addr)
     fn = load("gather_aggregate", _SYMBOLS)[
         f"gather_aggregate_{DTYPE_SUFFIX[hot.dtype]}"]
     err = call(device, fn, tier.data_ptr(), slot.data_ptr(), hp,

@@ -17,6 +17,7 @@ from repro_torch.kernels.embedding_bag import ref as eb_ref
 from repro_torch.kernels.gather_aggregate import ops as ga_ops
 from repro_torch.kernels.gather_aggregate import ref as ga_ref
 from repro_torch.kernels import segment_spmm as sp_pkg
+from repro_torch.kernels.build import LanePlan, int_bits
 from repro_torch.kernels.segment_spmm import ops as sp_ops
 from repro_torch.kernels.segment_spmm import ref as sp_ref
 from repro_torch.kernels.tiered_gather import ops as tg_ops
@@ -82,10 +83,6 @@ SERVE_SWEEP = ([(d, dt, 0) for dt in (torch.float32, torch.bfloat16)
                + [(d, torch.bfloat16, 1) for d in (16, 37, 64, 128, 256)])
 
 
-def _bits(x):
-    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
-
-
 def _serve_inputs(card, d, dtype, offset, segments, fan, seed):
     """Tables with rows of -0.0 (whole rows, and -0.0 among other values)
     and (tier, slot) addresses over all three tiers, pads (99, -1) and
@@ -134,13 +131,13 @@ def test_serve_kernels_sweep_bitwise_on_card(card, d, dtype, offset, fan):
     first_tg = tg_ops.tiered_gather(flat_t, flat_s, hot, warm)
     again_tg = tg_ops.tiered_gather(flat_t, flat_s, hot, warm)
     torch.cuda.synchronize()
-    assert torch.equal(_bits(first), _bits(want))
-    assert torch.equal(_bits(again), _bits(first))
-    assert not _bits(first)[0].any()                  # +0.0 after the fold
-    assert torch.equal(_bits(first_tg), _bits(want_tg))
-    assert torch.equal(_bits(again_tg), _bits(first_tg))
-    assert torch.equal(_bits(first_tg[0]), _bits(hot[3]))  # -0.0 copied
-    assert (_bits(hot[3]) != 0).all()
+    assert torch.equal(int_bits(first), int_bits(want))
+    assert torch.equal(int_bits(again), int_bits(first))
+    assert not int_bits(first)[0].any()                  # +0.0 after the fold
+    assert torch.equal(int_bits(first_tg), int_bits(want_tg))
+    assert torch.equal(int_bits(again_tg), int_bits(first_tg))
+    assert torch.equal(int_bits(first_tg[0]), int_bits(hot[3]))  # -0.0 copied
+    assert (int_bits(hot[3]) != 0).all()
     assert (tg_pkg.LAUNCHES.value, ga_pkg.LAUNCHES.value) == (
         before[0] + 2, before[1] + 2)
 
@@ -165,8 +162,8 @@ def test_serve_kernels_grid_stride_on_card(card, d):
     got_tg = tg_ops.tiered_gather(flat_t, flat_s, hot, warm)
     want_tg = tg_ref.tiered_gather_ref(flat_t, flat_s, hot, warm)
     torch.cuda.synchronize()
-    assert torch.equal(_bits(got), _bits(want))
-    assert torch.equal(_bits(got_tg), _bits(want_tg))
+    assert torch.equal(int_bits(got), int_bits(want))
+    assert torch.equal(int_bits(got_tg), int_bits(want_tg))
 
 
 @pytest.mark.cuda
@@ -946,3 +943,74 @@ def test_large_smem_kernels_launch_on_every_card(card):
                                 .astype(np.int32)).to(dev)
         assert torch.equal(eb_ops.embedding_bag(table, bags, None),
                            eb_ref.embedding_bag_ref(table, bags, None)), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d, dtype, offset", [
+    (16, torch.float32, 0), (64, torch.float32, 0), (256, torch.float32, 0),
+    (16, torch.bfloat16, 0), (37, torch.bfloat16, 0),
+    (256, torch.bfloat16, 1)])
+def test_gather_aggregate_autotune_plans_bitwise_on_card(card, d, dtype,
+                                                         offset):
+    """Every launch shape the autotune sweeps gives the plain version's
+    bits (compared as integers, rows of -0.0 included): the fold is
+    ordered over the fan axis whatever the plan. The autotune times them
+    all, the default among them, and counts its wrapper calls."""
+    from repro_torch.kernels.build import sm_count
+    from repro_torch.kernels.gather_aggregate import autotune, kernel
+    gen = torch.Generator(device=card).manual_seed(d)
+
+    def table(rows, off=0):
+        x = torch.randn((rows + off, d), generator=gen, device=card)
+        x = x.to(dtype)[off:]
+        x[::7] = -0.0
+        return x
+
+    hot, warm, cold = table(51, offset), table(40), table(9)
+    segs, fan = 2272, 5
+    tier = torch.randint(0, 4, (segs, fan), generator=gen, device=card,
+                         dtype=torch.int32)
+    tier[tier == 3] = 99
+    slot = torch.randint(-2, 60, (segs, fan), generator=gen, device=card,
+                         dtype=torch.int32)
+    want = ga_ref.gather_aggregate_ref(tier, slot, hot, warm, cold)
+    out = kernel.gather_aggregate_cuda(tier, slot, hot, warm, cold)
+    addr = (hot.data_ptr() | warm.data_ptr() | cold.data_ptr()
+            | out.data_ptr())
+    plans = autotune.candidate_plans(d, hot.element_size(), addr, segs,
+                                     sm_count(card))
+    assert len(plans) > 1
+    for plan in plans:
+        got = kernel.gather_aggregate_cuda(tier, slot, hot, warm, cold,
+                                           plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(int_bits(got), int_bits(want)), plan
+    before = ga_pkg.LAUNCHES.value
+    tune = autotune.autotune_gather_aggregate(tier, slot, hot, warm, cold,
+                                              repeats=3)
+    assert len(tune["timings_us"]) == len(plans)
+    assert autotune.plan_key(plans[0]) in tune["timings_us"]
+    assert tune["default"] == autotune.plan_dict(plans[0])
+    assert tune["launches"] == ga_pkg.LAUNCHES.value - before > 0
+    assert all(t > 0 for t in tune["timings_us"].values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [
+    LanePlan(8, 2, 3, 10, 1, 1), LanePlan(8, 2, 64, 0, 1, 1),
+    LanePlan(8, 2, 2, 16, 1, 0), LanePlan(16, 1, 1, 32, 1, 1)],
+    ids=["lanes3", "lanes64", "blocks0", "vec16_row16_at8"])
+def test_gather_aggregate_refuses_plans_it_cannot_run_on_card(card, plan):
+    """The wrapper refuses a plan the kernel cannot run, and launches
+    nothing: the C side the lanes and the grid, ``check_plan`` a vector
+    that does not divide every row's address (for the 16-byte vector the
+    table of fp32 d 4 rows starts 8 bytes past the allocation)."""
+    from repro_torch.kernels.gather_aggregate import kernel
+    flat = torch.ones(26, device=card)
+    hot = (flat[2:] if plan.vec_bytes == 16 else flat)[:24].view(6, 4)
+    assert hot.data_ptr() % 16 == (8 if plan.vec_bytes == 16 else 0)
+    tier = torch.zeros((3, 2), dtype=torch.int32, device=card)
+    before = ga_pkg.LAUNCHES.value
+    with pytest.raises((RuntimeError, ValueError)):
+        kernel.gather_aggregate_cuda(tier, tier, hot, hot, hot, plan=plan)
+    assert ga_pkg.LAUNCHES.value == before
