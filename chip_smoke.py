@@ -280,10 +280,25 @@ Phases (any failed check exits non-zero before the result line):
              (``AUTOTUNE_SHAPE``), bitwise to the plain version, with each
              one's µs, the chosen plan, the bound and ``F.embedding_bag``.
              One ``{"serving_benches": ...}`` line.
+8c. dryrun — the dry-run (``repro_torch.launch.dryrun``) at full size on
+             fake ``cuda`` tensors, nothing allocated: every (arch ×
+             shape) cell but the ones that take more than ~10 s to count
+             (``train_4k``'s and EquiformerV2's, the CLI's alone), each
+             ``ok`` on both production meshes, with every launch counter
+             still 0 after a count (a fake tensor reaches no kernel: the
+             kernels' fake branches record their ``ref.cost`` instead).
+             The cells of ``DRYRUN_MEASURE`` then run on the card at world
+             1 from seed 0, the counters set to 0 just before and read
+             just after: each must fit, launch its kernel
+             (``embedding_bag`` for DIN, ``segment_spmm`` for GIN-TU), and
+             take at least its world-1 roofline bound (``bound_share`` at
+             most ``BOUND_SHARE_MAX``: a step faster than its bound means
+             the count is wrong). One ``{"dryrun": ...}`` line.
 9. summary — one ``{"kernels": [...]}`` line (``launches_by_path`` splits
              ``embedding_bag``'s and ``segment_spmm``'s launches by path:
-             ``segment_spmm``'s GIN-TU train, SAGE full graph and GIN-TU
-             halo; ``tiered_gather``'s GNN serve, the paper's figures,
+             ``segment_spmm``'s GIN-TU train, SAGE full graph, GIN-TU
+             halo and the dry-run's measured cells (``dryrun/<arch>/
+             <shape>``, as ``embedding_bag``'s); ``tiered_gather``'s GNN serve, the paper's figures,
              whose products-size calls are under ``paper_figures``, and
              each serving benchmark (``bench/<module>``);
              ``gather_aggregate``'s GNN serve and its benchmark, with the
@@ -460,6 +475,15 @@ def check_no_spills(name: str) -> dict:
     return res
 
 
+def bound_of(cost: dict, peak_flops: float = FP32_FLOPS) -> tuple:
+    """``(bound_ms, bound_by)`` of a kernel's ``ref.cost``: the larger of
+    its bytes over HBM's rate and its operations over ``peak_flops``."""
+    mem_s = cost["bytes"] / HBM_BYTES_PER_S
+    op_s = cost["flops"] / peak_flops
+    return max(mem_s, op_s) * 1e3, ("bytes" if mem_s >= op_s
+                                    else "operations")
+
+
 # ---------------------------------------------------------------------------
 # phase 3 helpers
 # ---------------------------------------------------------------------------
@@ -578,6 +602,8 @@ def kernel_phase(stack, fanouts, seeds) -> list[dict]:
     from repro_torch.kernels import tiered_gather as tg
     from repro_torch.kernels.gather_aggregate import kernel as ga_kernel
     from repro_torch.kernels.tiered_gather import kernel as tg_kernel
+    from repro_torch.kernels.gather_aggregate import ref as ga_ref
+    from repro_torch.kernels.tiered_gather import ref as tg_ref
 
     cap = capture_serve_inputs(stack, fanouts, seeds)
     check(set(cap) == {"tiered_gather", "gather_aggregate"},
@@ -634,7 +660,7 @@ def kernel_phase(stack, fanouts, seeds) -> list[dict]:
         f"{torch.equal(lib_out, tg.tiered_gather(tier, slot, hot, warm))}")
     elem = hot.element_size()
     read_rows = distinct_rows(tier, slot, (hot, warm))
-    nbytes = 8 * m + read_rows * d * elem + m * d * elem
+    nbytes = tg_ref.cost(m, d, elem, read_rows=read_rows)["bytes"]
     results.append({
         "name": "tiered_gather", "route": "cuda",
         "source": "src/repro_torch/csrc/tiered_gather.cu",
@@ -714,9 +740,8 @@ def kernel_phase(stack, fanouts, seeds) -> list[dict]:
         f"{float((lib_out - kern_out).abs().max()):.3g}")
     valid = int((tier <= 2).logical_and(tier >= 0).sum())
     read_rows = distinct_rows(tier, slot, (hot, warm, cold))
-    nbytes = 8 * s * fan + read_rows * d * elem + s * d * elem
-    flops = valid * d
-    bound_s = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS)
+    cost = ga_ref.cost(s, fan, d, elem, read_rows=read_rows, valid=valid)
+    bound_ms, bound_by = bound_of(cost)
     results.append({
         "name": "gather_aggregate", "route": "cuda",
         "source": "src/repro_torch/csrc/gather_aggregate.cu",
@@ -726,14 +751,13 @@ def kernel_phase(stack, fanouts, seeds) -> list[dict]:
                                                        cold)),
         "plain_ms": time_ms(lambda: ga.gather_aggregate_ref(tier, slot, hot,
                                                             warm, cold)),
-        "bound_ms": bound_s * 1e3,
-        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                     >= flops / FP32_FLOPS else "operations"),
+        "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": time_ms(lambda: F.embedding_bag(lib_idx, table,
                                                       mode="sum")),
         "call_ms": time_ms(lambda: ga.gather_aggregate_cuda(
             tier, slot, hot, warm, cold), graph=False),
-        "bytes": nbytes, "shape": [s, fan, d], "design": ga_kernel.DESIGN})
+        "bytes": cost["bytes"], "shape": [s, fan, d],
+        "design": ga_kernel.DESIGN})
     for r in results:
         r["floor_ms"] = floor_ms
         log(f"{r['name']} device time (CUDA graph replay): kernel "
@@ -1551,6 +1575,7 @@ def bag_call_row(shape: str, table, ids, weights, mode: str, *,
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels.embedding_bag import ref as eb_ref
     bsz, bag = ids.shape
     d, elem = table.shape[1], table.element_size()
     valid = ids >= 0
@@ -1569,10 +1594,10 @@ def bag_call_row(shape: str, table, ids, weights, mode: str, *,
 
     log(f"F.embedding_bag yardstick ({shape} {mode}) max |diff| vs "
         f"kernel: {float((library() - kernel()).abs().max()):.3g}")
-    nbytes = (n_valid * d * elem
-              + bsz * bag * (4 + (elem if weights is not None else 0))
-              + bsz * d * elem)
-    flops = n_valid * d * (2 if weights is not None else 1)
+    cost = eb_ref.cost(bsz, bag, d, elem, weighted=weights is not None,
+                       n_valid=n_valid)
+    nbytes = cost["bytes"]
+    bound_ms, bound_by = bound_of(cost)
     r = {"shape": shape, "call": ("interest (sum, weighted)"
                                   if weights is not None
                                   else "hist_mean (mean)"),
@@ -1582,9 +1607,7 @@ def bag_call_row(shape: str, table, ids, weights, mode: str, *,
              table, ids, weights, mode=mode),
              **(dict(inner=3, reps=5) if big else {})),
          "library_ms": time_ms(library),
-         "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3,
-         "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                      >= flops / FP32_FLOPS else "operations"),
+         "bound_ms": bound_ms, "bound_by": bound_by,
          "bytes": nbytes,
          "call_ms": time_ms(kernel, graph=False)}
     log(f"embedding_bag {shape} {r['call']}: kernel {r['ms']:.5f} ms, plain "
@@ -1932,6 +1955,7 @@ def spmm_call_row(name: str, ids, feat) -> dict:
     and one add for each valid id's row. Logs the row."""
     import torch
     from repro_torch.kernels import segment_spmm as sp
+    from repro_torch.kernels.segment_spmm import ref as sp_ref
     n, dmax = ids.shape
     m, d = feat.shape
     elem = feat.element_size()
@@ -1950,8 +1974,9 @@ def spmm_call_row(name: str, ids, feat) -> dict:
         f"{float((lib - kern).abs().max()):.3g} (its sums in another "
         f"order; max |kernel| {float(kern.abs().max()):.4g})")
     del kern, lib
-    nbytes = n * dmax * 4 + rows_read * d * elem + n * d * elem
-    flops = nnz * d
+    cost = sp_ref.cost(n, dmax, d, elem, nnz=nnz, rows_read=rows_read)
+    nbytes = cost["bytes"]
+    bound_ms, bound_by = bound_of(cost)
     r = {"call": name, "ids": [n, dmax], "feat": [m, d], "nnz": nnz,
          "rows_read": rows_read, "gathered_bytes": nnz * d * elem,
          "ms": time_ms(lambda: sp.segment_spmm_cuda(ids, feat), inner=5,
@@ -1960,9 +1985,7 @@ def spmm_call_row(name: str, ids, feat) -> dict:
                              inner=1, reps=3, graph=False),
          "library_ms": time_ms(lambda: torch.sparse.mm(adj, feat), inner=3,
                                reps=5, graph=False),
-         "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3,
-         "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                      >= flops / FP32_FLOPS else "operations"),
+         "bound_ms": bound_ms, "bound_by": bound_by,
          "bytes": nbytes}
     r["gathered_hbm_share"] = (r["gathered_bytes"] / (r["ms"] * 1e-3)
                                / HBM_BYTES_PER_S)
@@ -2190,12 +2213,8 @@ def hold_card_vs_cpu(name: str, run, what, *, tol_of=lambda k: GRAD_TOL,
 # ---------------------------------------------------------------------------
 def kernel_launches() -> dict:
     """The five kernels' launch counters."""
-    from repro_torch.kernels import (embedding_bag, flash_attention,
-                                     gather_aggregate, segment_spmm,
-                                     tiered_gather)
-    return {m.__name__.rsplit(".", 1)[1]: m.LAUNCHES
-            for m in (tiered_gather, gather_aggregate, embedding_bag,
-                      segment_spmm, flash_attention)}
+    from repro_torch.kernels.build import launch_counters
+    return launch_counters()
 
 
 def train_full_equiformer(info: dict, shape: str, cell=None) -> dict:
@@ -2809,11 +2828,12 @@ def flash_times(q, k, v) -> dict:
     bound from this input's bytes and flops (bf16 tensor-core peak)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     b, s, h, dh = q.shape
-    kvh = k.shape[2]
-    nbytes = (2 * b * s * h * dh + 2 * b * s * kvh * dh) * q.element_size()
-    flops = 4 * b * h * dh * s * (s + 1) // 2
+    cost = fa_ref.cost(b, s, k.shape[1], h, k.shape[2], dh, q.element_size())
+    nbytes, flops = cost["bytes"], cost["flops"]
+    bound_ms, bound_by = bound_of(cost, BF16_TENSOR_FLOPS)
     row = {
         "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v), inner=1,
                       reps=3, graph=False),
@@ -2822,10 +2842,7 @@ def flash_times(q, k, v) -> dict:
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), inner=1, reps=3,
             graph=False),
-        "bound_ms": max(nbytes / HBM_BYTES_PER_S,
-                        flops / BF16_TENSOR_FLOPS) * 1e3,
-        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                     >= flops / BF16_TENSOR_FLOPS else "operations"),
+        "bound_ms": bound_ms, "bound_by": bound_by,
         "flops": flops, "bytes": nbytes}
     row["tflops"] = flops / row["ms"] / 1e9
     row["over_bound"] = row["ms"] / row["bound_ms"]
@@ -3304,6 +3321,7 @@ def figure_gather_row(name: str, args) -> dict:
     written once)."""
     import torch
     from repro_torch.kernels import tiered_gather as tg
+    from repro_torch.kernels.tiered_gather import ref as tg_ref
     tier, slot, hot, warm = args
     got = tg.tiered_gather_cuda(tier, slot, hot, warm)
     again = tg.tiered_gather_cuda(tier, slot, hot, warm)
@@ -3322,7 +3340,7 @@ def figure_gather_row(name: str, args) -> dict:
                                       h_rows + sl.clamp(0, w_rows - 1),
                                       h_rows + w_rows))
     read_rows = distinct_rows(tier, slot, (hot, warm))
-    nbytes = 8 * m + read_rows * d * elem + m * d * elem
+    nbytes = tg_ref.cost(m, d, elem, read_rows=read_rows)["bytes"]
     row = {"m": m, "d": d, "distinct_rows": read_rows,
            "device_rows": int(((tier == 0) | (tier == 1)).sum()),
            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -3509,14 +3527,16 @@ def autotune_row(tier, slot, hot, warm, cold, what: str) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.gather_aggregate import autotune
+    from repro_torch.kernels.gather_aggregate import ref as ga_ref
     n_plans = hold_plans(tier, slot, hot, warm, cold, what)
     tune = autotune.autotune_gather_aggregate(tier, slot, hot, warm, cold)
     s, fan = tier.shape
     d, elem = hot.shape[1], hot.element_size()
     read_rows = distinct_rows(tier, slot, (hot, warm, cold))
-    nbytes = 8 * s * fan + read_rows * d * elem + s * d * elem
-    flops = int(((tier >= 0) & (tier <= 2)).sum()) * d
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+    cost = ga_ref.cost(s, fan, d, elem, read_rows=read_rows,
+                       valid=int(((tier >= 0) & (tier <= 2)).sum()))
+    nbytes = cost["bytes"]
+    bound_ms, _ = bound_of(cost)
     table = torch.cat([hot, warm, cold, hot.new_zeros((1, d))])
     h_rows, w_rows, c_rows = hot.shape[0], warm.shape[0], cold.shape[0]
     sl = slot.long()
@@ -3666,6 +3686,129 @@ def serving_benches_phase(tg_entry: dict, ga_entry: dict) -> None:
         default=str), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 8c
+# ---------------------------------------------------------------------------
+# the cells that take more than ~10 s to count on the card's host: the
+# dry-run CLI counts them (every train_4k cell, and EquiformerV2 at l_max 6)
+DRYRUN_CLI_ONLY_ARCHS = ("equiformer-v2",)
+DRYRUN_CLI_ONLY_SHAPES = ("train_4k",)
+# the cells run on the card at world 1, and the kernel each must launch
+DRYRUN_MEASURE = {("din", "serve_p99"): "embedding_bag",
+                  ("din", "train_batch"): "embedding_bag",
+                  ("din", "serve_bulk"): "embedding_bag",
+                  ("gin-tu", "ogb_products"): "segment_spmm",
+                  ("gin-tu", "full_graph_sm"): "segment_spmm",
+                  ("schnet", "molecule"): None,
+                  ("meshgraphnet", "molecule"): None}
+BOUND_SHARE_MAX = 1.05
+
+
+def dryrun_row(rec: dict, model_flops: float) -> dict:
+    """The phase's summary of one cell's single-mesh record."""
+    g = rec["global"]
+    row = {"arch": rec["arch"], "shape": rec["shape"], "kind": rec["kind"],
+           "count_s": rec["count_s"], "flops": g["flops"],
+           "bytes_accessed": g["bytes_accessed"],
+           "model_over_counted": model_flops / max(g["flops"], 1),
+           "kernels": g["kernels"],
+           "world1_bound_ms":
+               rec["world1"]["roofline"]["step_lower_bound_s"] * 1e3,
+           "world1_bound_by": rec["world1"]["roofline"]["dominant"],
+           "world1_peak_bytes": rec["world1"]["peak_hbm_bytes"],
+           "mesh_16x16": {"peak_hbm_bytes":
+                              rec["memory"]["peak_hbm_bytes"],
+                          "step_lower_bound_ms":
+                              rec["roofline"]["step_lower_bound_s"] * 1e3,
+                          "dominant": rec["roofline"]["dominant"]},
+           "notes": rec["notes"]}
+    if "measured" in rec:
+        m = rec["measured"]
+        row["measured"] = {k: m[k] for k in ("step_ms", "peak_bytes",
+                                             "resident_bytes", "bound_share",
+                                             "launches_per_step")}
+    return row
+
+
+def dryrun_phase(bag_entry: dict, spmm_entry: dict) -> None:
+    """Phase 8c (module docstring): count the cells on fake ``cuda``
+    tensors, run ``DRYRUN_MEASURE`` on the card, hold each measured step
+    to its bound, and print the records."""
+    from repro_torch.bench.common import card_name
+    from repro_torch.bench.roofline import model_flops
+    from repro_torch.configs import get_arch, list_archs
+    from repro_torch.launch import dryrun
+
+    counters = kernel_launches()
+    entries = {"embedding_bag": bag_entry, "segment_spmm": spmm_entry}
+    rows, records = [], []
+    for name in list_archs():
+        if name in DRYRUN_CLI_ONLY_ARCHS:
+            continue
+        for shape in get_arch(name).shape_names:
+            if shape in DRYRUN_CLI_ONLY_SHAPES:
+                continue
+            measure = (name, shape) in DRYRUN_MEASURE
+            for c in counters.values():
+                c.reset()
+            recs = dryrun.run_cell(name, shape, device="cuda",
+                                   measure=measure, seed=0, verbose=False)
+            launches = {k: c.value for k, c in counters.items()}
+            rec = recs[0]
+            check(all(r["ok"] for r in recs),
+                  f"dry-run {name} {shape}: {rec.get('error')}\n"
+                  f"{rec.get('traceback', '')}")
+            records += recs
+            row = dryrun_row(rec, model_flops(name, shape))
+            rows.append(row)
+            msg = (f"dry-run {name} {shape}: counted in {rec['count_s']:.1f} "
+                   f"s, {row['flops']:.4g} FLOP, {row['bytes_accessed']:.4g} "
+                   f"B (model/counted {row['model_over_counted']:.3f}); "
+                   f"world-1 bound {row['world1_bound_ms']:.3f} ms "
+                   f"({row['world1_bound_by']}), peak "
+                   f"{row['world1_peak_bytes'] / 1e9:.2f} GB; kernels "
+                   f"{ {k: v['calls'] for k, v in row['kernels'].items()} }")
+            if not measure:
+                check(not any(launches.values()),
+                      f"dry-run {name} {shape}: a fake tensor launched "
+                      f"{launches}")
+                log(msg)
+                continue
+            check("measured" in rec, f"dry-run {name} {shape} did not fit "
+                  f"one card ({row['world1_peak_bytes']} bytes modeled)")
+            m = row["measured"]
+            log(f"{msg}; measured {m['step_ms']:.3f} ms a step, peak "
+                f"{m['peak_bytes'] / 1e9:.2f} GB (the cell's own "
+                f"{(m['peak_bytes'] - m['resident_bytes']) / 1e9:.2f}), "
+                f"bound share "
+                f"{m['bound_share']:.4f}, launches {launches}")
+            check(m["bound_share"] <= BOUND_SHARE_MAX,
+                  f"dry-run {name} {shape}: step {m['step_ms']:.3f} ms is "
+                  f"under its bound {row['world1_bound_ms']:.3f} ms")
+            kern = DRYRUN_MEASURE[(name, shape)]
+            check(not any(v for k, v in launches.items() if k != kern),
+                  f"dry-run {name} {shape} launched another kernel: "
+                  f"{launches}")
+            if kern is not None:
+                check(launches[kern] > 0, f"dry-run {name} {shape} never "
+                      f"launched {kern}")
+                # the count's calls of the kernel are the step's launches
+                check(row["kernels"][kern]["calls"]
+                      == m["launches_per_step"].get(kern),
+                      f"dry-run {name} {shape}: {kern} counted "
+                      f"{row['kernels'][kern]['calls']} calls a step, "
+                      f"launched {m['launches_per_step']}")
+                entry = entries[kern]
+                entry.setdefault("launches_by_path", {})[
+                    f"dryrun/{name}/{shape}"] = launches[kern]
+                entry["launches"] += launches[kern]
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "dryrun_smoke.json").write_text(json.dumps(records, indent=1))
+    print(json.dumps({"dryrun": {"card": card_name("cuda"),
+                                 "cells": rows}}), flush=True)
+
+
 def main() -> None:
     import torch
     t_start = time.perf_counter()
@@ -3811,6 +3954,14 @@ def main() -> None:
         next(r for r in results if r["name"] == "tiered_gather"),
         next(r for r in results if r["name"] == "gather_aggregate"))
     log(f"serving benches phase in {time.perf_counter() - t0:.1f} s")
+
+    # 8c. the dry-run
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dryrun_phase(next(r for r in results if r["name"] == "embedding_bag"),
+                 next(r for r in results if r["name"] == "segment_spmm"))
+    log(f"dry-run phase in {time.perf_counter() - t0:.1f} s")
 
     # 9. summary
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -1,5 +1,6 @@
-"""Runner of the benchmarks: the paper's tables and figures, and the
-serving benchmarks of Quiver's own mechanisms, one module each.
+"""Runner of the benchmarks: the paper's tables and figures, the serving
+benchmarks of Quiver's own mechanisms, and the two reports of the
+dry-run's output (``scalability``, ``roofline``), one module each.
 
     PYTHONPATH=src python -m repro_torch.bench.run [--only NAME[,NAME...]] \
         [--device cuda|cpu] [--size reference|products] [--json-out PATH]
@@ -40,12 +41,16 @@ MODULES = [
     "multi_model",         # shared-store registry vs isolated engines
     "policy_cdf",          # Fig. 10
     "workload_drift",      # online adaptation vs frozen placement
+    "scalability",         # Fig. 11/12 (from the dry-run's output)
+    "roofline",            # roofline report (from the dry-run's output)
 ]
-# the serving benchmarks of Quiver's mechanisms; the rest are the paper's
+# the serving benchmarks of Quiver's mechanisms; the two that read the
+# dry-run's output (repro_torch.launch.dryrun); the rest are the paper's
 # eight tables and figures
 SERVING = ("fused_gather", "gather_aggregate", "prefetch", "sharded_hierarchy",
            "flash_crowd", "gateway_soak", "multi_model", "workload_drift")
-FIGURES = [m for m in MODULES if m not in SERVING]
+DRYRUN = ("scalability", "roofline")
+FIGURES = [m for m in MODULES if m not in SERVING + DRYRUN]
 # ogbn-products (2,449,029 nodes, 61,859,140 edges, 100 fp32 features)
 PRODUCTS = dict(nodes=2449029, avg_degree=25.26, d_feat=100)
 SIZES = {"reference": {},

@@ -1,7 +1,8 @@
 """Model configurations of the port: the reference's published settings
-(``src/repro/configs``), without the JAX-only cell/sharding machinery.
-Importing the package registers every architecture
-(:mod:`repro_torch.configs.base`: ``get_arch``, ``list_archs``).
+(``src/repro/configs``), with each architecture's dry-run cell
+(``build_cell``), smoke and sharding rules. Importing the package
+registers every architecture (:mod:`repro_torch.configs.base`:
+``get_arch``, ``list_archs``).
 Ported so far: :mod:`repro_torch.configs.din`, the GNNs
 (:mod:`~repro_torch.configs.gin_tu`, :mod:`~repro_torch.configs.schnet`,
 :mod:`~repro_torch.configs.meshgraphnet`,
@@ -17,7 +18,7 @@ from repro_torch.configs import (codeqwen15_7b, deepseek_moe_16b, din,
                                  equiformer_v2, gin_tu, gnn_common,
                                  lm_common, meshgraphnet, phi35_moe_42b,
                                  qwen3_4b, qwen15_4b, schnet)
-from repro_torch.configs.base import Arch, get_arch, list_archs
+from repro_torch.configs.base import Arch, CellSpec, get_arch, list_archs
 
 # LM architectures by the reference's registry name
 LM_ARCHS = {"qwen3-4b": qwen3_4b.CONFIG, "qwen1.5-4b": qwen15_4b.CONFIG,
@@ -30,4 +31,4 @@ ALL_ARCHS = list_archs()
 __all__ = ["din", "gin_tu", "schnet", "meshgraphnet", "equiformer_v2",
            "gnn_common", "lm_common", "qwen3_4b", "qwen15_4b",
            "codeqwen15_7b", "deepseek_moe_16b", "phi35_moe_42b", "LM_ARCHS",
-           "Arch", "get_arch", "list_archs", "ALL_ARCHS"]
+           "Arch", "CellSpec", "get_arch", "list_archs", "ALL_ARCHS"]

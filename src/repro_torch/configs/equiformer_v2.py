@@ -82,4 +82,6 @@ def _loss_sharded(model: EquiformerV2, batch: list[dict], info: dict,
 ARCH = register(make_gnn_arch(GNNAdapter(
     name="equiformer-v2", init=_init, loss=_loss,
     description="eSCN SO(2)-convolution equivariant graph attention.",
-    loss_sharded=_loss_sharded)))
+    loss_sharded=_loss_sharded,
+    exchange=(N_LAYERS, (L_MAX + 1) ** 2 * CHANNELS)),
+    reduced_init=_reduced_init))

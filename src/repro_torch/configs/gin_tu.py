@@ -17,6 +17,11 @@ from repro_torch.models.gnn_basic import (GIN, gin_full_graph,
 
 N_LAYERS, D_HIDDEN = 5, 64
 
+# the dry-run cell's ELL widths (in-degree, out-degree maximum) of each
+# shape's seed-0 batch (``gnn_common.make_concrete_batch``)
+ELL_WIDTHS = {"full_graph_sm": (12, 14), "minibatch_lg": (8, 8),
+              "ogb_products": (53, 53), "molecule": (9, 9)}
+
 
 def _init(generator: torch.Generator, d_feat: int, n_out: int, shape: str,
           *, device: str | torch.device = "cuda") -> GIN:
@@ -26,15 +31,19 @@ def _init(generator: torch.Generator, d_feat: int, n_out: int, shape: str,
 
 def _loss(model: GIN, batch: dict, info: dict, shape: str) -> torch.Tensor:
     """Regression on per-graph readouts when ``info`` has graphs, else
-    node classification over the full graph."""
+    node classification over the full graph. A batch that carries its ELL
+    pair (``ell_ids``, ``ell_ids_t``: the dry-run's cell) sums through
+    it; else the pair is built from the edges."""
+    ell = ((batch["ell_ids"], batch["ell_ids_t"]) if "ell_ids" in batch
+           else None)
     if info["graphs"] is not None:
         pred = gin_graph_readout(model, batch["node_feat"], batch["src"],
                                  batch["dst"], batch["mol_id"],
                                  num_nodes=info["nodes"],
-                                 num_graphs=info["graphs"])
+                                 num_graphs=info["graphs"], ell=ell)
         return regression_loss(pred, batch["labels"])
     logits = gin_full_graph(model, batch["node_feat"], batch["src"],
-                            batch["dst"], num_nodes=info["nodes"])
+                            batch["dst"], num_nodes=info["nodes"], ell=ell)
     return classification_loss(logits, batch["labels"])
 
 
@@ -85,4 +94,5 @@ def _loss_sharded(model: GIN, batch: list[dict], info: dict, shape: str,
 ARCH = register(make_gnn_arch(GNNAdapter(
     name="gin-tu", init=_init, loss=_loss,
     description="GIN-ε, 5 layers, 64 hidden, sum aggregation.",
-    loss_sharded=_loss_sharded)))
+    loss_sharded=_loss_sharded, exchange=(N_LAYERS, D_HIDDEN),
+    ell_widths=ELL_WIDTHS)))

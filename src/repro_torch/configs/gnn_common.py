@@ -1,9 +1,9 @@
-"""Shapes, the unified batch, the losses, the per-architecture adapter and
-the halo-sharded training cell shared by the GNN architectures —
-``src/repro/configs/gnn_common.py`` without its dry-run cell, mesh rules
-and smoke (``build_gnn_cell``'s unsharded half, ``gnn_rules``,
-``gnn_smoke``, ``CellSpec``; ROADMAP A12). Its ``use_halo`` branch is
-:func:`build_halo_cell`.
+"""Shapes, the unified batch, the losses, the per-architecture adapter, the
+halo-sharded training cell, and the dry-run's cell, rules and smoke shared
+by the GNN architectures — ``src/repro/configs/gnn_common.py``. The
+reference's ``use_halo`` branch runs as :func:`build_halo_cell`; the
+dry-run's cell (:func:`build_gnn_cell`) counts the unsharded step and
+names the halo exchange in its notes for the collective model.
 
 Shapes:
   full_graph_sm — full-batch train, N=2,708 / E=10,556 / d=1,433 (Cora)
@@ -14,20 +14,29 @@ Shapes:
 
 The unified batch is ``{node_feat, positions, species, src, dst,
 labels(, mol_id)}``; every architecture consumes the subset it needs.
+Sharding (read by the dry-run): nodes and edges row-sharded over the
+whole mesh; GNN parameters are small and stay replicated.
 """
 from __future__ import annotations
 
 import dataclasses
+import zlib
+from functools import partial
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import Arch
+from repro_torch.configs.base import Arch, CellSpec, fake_to
 from repro_torch.core.halo import HaloCtx, partition_edges_by_dst
-from repro_torch.launch.mesh import Mesh
+from repro_torch.kernels.segment_spmm.ref import ell_pair
+from repro_torch.launch.mesh import Mesh, mesh_world
+from repro_torch.sharding import Rules, spec, tree_shardings
+from repro_torch.training.loop import make_train_step
+from repro_torch.training.optimizer import AdamW, AdamWState
 
 SHAPES = {
     # padded from N=2,708 / E=10,556 to multiples of 32
@@ -122,6 +131,14 @@ class GNNAdapter:
     description: str = ""
     loss_sharded: Optional[Callable] = None
     sharded_shapes: tuple = ("ogb_products",)
+    # the dry-run's collective model: (layers, width of the rows a layer
+    # exchanges)
+    exchange: tuple = (0, 0)
+    # the dry-run's ELL inputs: {shape: (in-degree width, out-degree
+    # width)} of the seed-0 batch, for a loss that sums through
+    # ``segment_spmm`` (its tables are data-dependent, so a fake batch
+    # carries them as inputs ``ell_ids``/``ell_ids_t``); None otherwise
+    ell_widths: Optional[dict] = None
 
 
 def use_halo(adapter: GNNAdapter, shape: str, info: dict,
@@ -227,6 +244,181 @@ def build_halo_cell(adapter: GNNAdapter, info: dict, shape: str,
     return HaloCell(ctx, loss, lambda batch: shard_batch(batch, ctx))
 
 
-def make_gnn_arch(adapter: GNNAdapter) -> Arch:
-    return Arch(name=adapter.name, family="gnn",
-                description=adapter.description, adapter=adapter)
+# ---------------------------------------------------------------------------
+# The dry-run's cell, rules and smoke
+# ---------------------------------------------------------------------------
+def gnn_rules(mesh) -> Rules:
+    """GNNs have no tensor-parallel dimension (params are small and
+    replicated), so node/edge rows shard over the ENTIRE mesh;
+    divisibility-aware fallback keeps small shapes replicated."""
+    if mesh is None:
+        return Rules({})
+    all_axes = tuple(mesh.shape.keys())
+    return Rules({"nodes": all_axes, "edges": all_axes, "graphs": all_axes})
+
+
+def _batch_abstract(info: dict, device: torch.device,
+                    ell: Optional[tuple] = None) -> dict:
+    """The unified batch of ``info``'s shape as empty tensors on
+    ``device`` (fake under an active ``FakeTensorMode``); with ``ell``
+    ``(width, width_t)``, the ELL pair ``ell_ids``/``ell_ids_t``."""
+    n, e = info["nodes"], info["edges"]
+
+    def t(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    batch = {
+        "node_feat": t((n, info["d_feat"]), torch.float32),
+        "positions": t((n, 3), torch.float32),
+        "species": t((n,), torch.int32),
+        "src": t((e,), torch.int32),
+        "dst": t((e,), torch.int32),
+    }
+    if info["graphs"] is not None:
+        batch["mol_id"] = t((n,), torch.int32)
+        batch["labels"] = t((info["graphs"],), torch.float32)
+    else:
+        batch["labels"] = t((info.get("seeds", n),), torch.int32)
+    if ell is not None:
+        batch["ell_ids"] = t((n, ell[0]), torch.int32)
+        batch["ell_ids_t"] = t((n, ell[1]), torch.int32)
+    return batch
+
+
+def _batch_specs(mesh, rules: Rules, info: dict, ell: bool = False) -> dict:
+    n, e = info["nodes"], info["edges"]
+    s = partial(spec, mesh, rules)
+    out = {
+        "node_feat": s((n, info["d_feat"]), "nodes", None),
+        "positions": s((n, 3), "nodes", None),
+        "species": s((n,), "nodes"),
+        "src": s((e,), "edges"),
+        "dst": s((e,), "edges"),
+    }
+    if info["graphs"] is not None:
+        out["mol_id"] = s((n,), "nodes")
+        out["labels"] = s((info["graphs"],), "graphs")
+    else:
+        out["labels"] = s((info.get("seeds", n),), "nodes")
+    if ell:
+        out["ell_ids"] = s((n, 1), "nodes", None)
+        out["ell_ids_t"] = s((n, 1), "nodes", None)
+    return out
+
+
+def train_optimizer() -> AdamW:
+    """The GNN cells' optimizer: ``AdamW(lr=1e-3, weight_decay=0.0)``."""
+    return AdamW(lr=1e-3, weight_decay=0.0)
+
+
+def with_ell(batch: dict, num_nodes: int) -> dict:
+    """``batch`` with its ELL pair (``ell_pair`` of its edges, on their
+    device) as ``ell_ids``/``ell_ids_t``."""
+    ids, ids_t = ell_pair(batch["src"], batch["dst"], num_nodes)
+    return {**batch, "ell_ids": ids, "ell_ids_t": ids_t}
+
+
+def build_gnn_cell(adapter: GNNAdapter, shape: str, mesh, *,
+                   device: str | torch.device = "cuda") -> CellSpec:
+    """The reference's ``build_gnn_cell`` on fake tensors of ``device``:
+    one training step (the adapter's loss, its gradient, an AdamW update
+    in place) on the unified batch. Where the reference takes its
+    halo-sharded branch (:func:`use_halo` over the mesh's world), the
+    notes say ``halo-sharded`` and the collective model counts the halo
+    exchange; the step counted is the unsharded one either way (the same
+    arithmetic: the counts do not depend on the mesh)."""
+    info = SHAPES[shape]
+    rules = gnn_rules(mesh)
+    n_out = info["classes"] if info["classes"] is not None else 1
+    opt = train_optimizer()
+    ell = (adapter.ell_widths or {}).get(shape)
+    dev = torch.device(device)
+    mode = FakeTensorMode()
+    with mode:
+        model = fake_to(adapter.init(torch.Generator().manual_seed(0),
+                                     info["d_feat"], n_out, shape,
+                                     device="cpu"), dev)
+        opt_state = opt.init(dict(model.named_parameters()))
+        batch = _batch_abstract(info, dev, ell)
+    world = mesh_world(mesh) if mesh is not None else 1
+    halo = mesh is not None and use_halo(adapter, shape, info, world)
+    in_sh = out_sh = None
+    if mesh is not None:
+        rep = {n: () for n, _ in model.named_parameters()}
+        psh = tree_shardings(mesh, rep)
+        in_sh = (psh, AdamWState(step=None, mu=psh, nu=psh),
+                 tree_shardings(mesh, _batch_specs(mesh, rules, info,
+                                                   ell is not None)))
+        out_sh = (psh, AdamWState(step=None, mu=psh, nu=psh),
+                  tree_shardings(mesh, ()))
+    step = make_train_step(
+        lambda m, b: adapter.loss(m, b, info, shape), opt)
+
+    def make_args(seed: int, device):
+        dev = resolve_device(device)
+        model = adapter.init(torch.Generator().manual_seed(seed),
+                             info["d_feat"], n_out, shape, device=dev)
+        batch = make_concrete_batch(info, seed=seed, device=dev)
+        if ell is not None:
+            batch = with_ell(batch, info["nodes"])
+        return model, opt.init(dict(model.named_parameters())), batch
+
+    notes = ["halo-sharded"] if halo else []
+    if ell is not None:
+        notes.append(f"ELL widths {ell[0]}/{ell[1]} (in/out degree "
+                     "maximum of the seed-0 batch)")
+    return CellSpec(
+        step_fn=step, args=(model, opt_state, batch), in_shardings=in_sh,
+        out_shardings=out_sh, donate_argnums=(0, 1), kind="train",
+        notes="; ".join(notes), dtype=torch.float32, fake_mode=mode,
+        make_args=make_args,
+        meta={"family": "gnn", "arch": adapter.name, "shape": shape,
+              "info": info, "rules": rules, "halo": halo,
+              "exchange": adapter.exchange,
+              "batch_spec": spec(mesh, rules, (info["nodes"],), "nodes"),
+              "cap_pp": halo_cap_pp(info, world) if halo else 0})
+
+
+def smoke_seed(shape: str) -> int:
+    """The smoke batch's seed for ``shape``: the reference takes ``hash(
+    shape) % 2**16``, which Python salts per process; the port takes the
+    CRC-32 of the name, the same in every process."""
+    return zlib.crc32(shape.encode()) % 2 ** 16
+
+
+def gnn_smoke(adapter: GNNAdapter, reduced_init: Callable, *,
+              models: Optional[dict] = None,
+              seeds: Optional[dict] = None) -> dict:
+    """The reference's ``gnn_smoke`` on the CPU: one reduced training step
+    a shape of :data:`REDUCED` (the model from ``reduced_init`` on seed 1
+    unless ``models[shape]`` is given; the batch from
+    ``make_concrete_batch`` at ``seeds[shape]``, else
+    :func:`smoke_seed`); asserts a finite loss and returns each shape's
+    loss before the update."""
+    out = {}
+    opt = train_optimizer()
+    for shape, info in REDUCED.items():
+        n_out = info["classes"] if info["classes"] is not None else 1
+        model = (models or {}).get(shape)
+        if model is None:
+            model = reduced_init(torch.Generator().manual_seed(1),
+                                 info["d_feat"], n_out, shape, device="cpu")
+        seed = (seeds or {}).get(shape, smoke_seed(shape))
+        batch = make_concrete_batch(info, seed=seed, device="cpu")
+        step = make_train_step(
+            lambda m, b: adapter.loss(m, b, info, shape), opt)
+        _, _, loss = step(model, opt.init(dict(model.named_parameters())),
+                          batch)
+        assert bool(torch.isfinite(loss)), (adapter.name, shape)
+        out[shape] = float(loss)
+    return out
+
+
+def make_gnn_arch(adapter: GNNAdapter,
+                  reduced_init: Optional[Callable] = None) -> Arch:
+    return Arch(
+        name=adapter.name, family="gnn", description=adapter.description,
+        adapter=adapter, shape_names=tuple(SHAPES),
+        build_cell=lambda shape, mesh, **kw: build_gnn_cell(adapter, shape,
+                                                            mesh, **kw),
+        smoke=lambda: gnn_smoke(adapter, reduced_init or adapter.init))

@@ -1,21 +1,35 @@
-"""Shapes of the LM serving and training cells, the smoke reduction and the
-``train_4k`` cell's step of ``src/repro/configs/lm_common.py``, without its
-sharding machinery.
+"""Shared cell builders for the five LM architectures, ported from
+``src/repro/configs/lm_common.py``: the shapes, the sharding rules and
+specs, the dry-run cell (:func:`build_lm_cell`), the smoke reduction
+(:func:`lm_smoke`) and the ``train_4k`` cell's step (:func:`train_step`).
 
 Shapes (per assignment):
   train_4k    — train_step,  seq 4096,   global_batch 256
   prefill_32k — serve prefill, seq 32768, global_batch 32
   decode_32k  — serve decode (1 new token, 32k KV cache), batch 128
-  long_500k   — serve decode, 524288 KV cache, batch 1
+  long_500k   — serve decode, 524288 KV cache, batch 1 (cache seq-sharded)
+
+Sharding (read by the dry-run, :mod:`repro_torch.sharding`): params are
+2-D sharded — FSDP over ("pod","data") × TP over "model" (vocab-parallel
+embeddings/logits, head-parallel attention, expert-parallel MoE);
+activations batch-sharded; the long_500k cell re-binds the cache sequence
+dimension to the data axes since batch=1.
 """
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
-from repro_torch.models.transformer import LM, LMConfig, lm_loss
+from repro_torch import resolve_device
+from repro_torch.configs.base import Arch, CellSpec
+from repro_torch.models.transformer import (LM, LMConfig, init_decode_cache,
+                                            lm_decode_step, lm_init, lm_loss,
+                                            lm_prefill)
+from repro_torch.sharding import Rules, spec, tree_shardings
 from repro_torch.training.loop import StageTimer
 from repro_torch.training.optimizer import AdamW, AdamWState
 
@@ -104,3 +118,289 @@ def train_step(model: LM, opt: AdamW, opt_state: AdamWState, batch: dict,
     if timer:
         timer.lap("optimizer")
     return opt_state, loss
+
+
+# ---------------------------------------------------------------------------
+# Sharding rules and specs (the dry-run's; the reference's functions)
+# ---------------------------------------------------------------------------
+def lm_rules(mesh, shape: str, cfg: Optional[LMConfig] = None) -> Rules:
+    """The reference's ``lm_rules``: batch and FSDP over the data axes,
+    TP/expert/vocab over "model"; where the KV heads do not divide the
+    model axis, the serve cells' cache shards its sequence over it
+    instead; at batch 1 the sequence also takes the data axes."""
+    if mesh is None:
+        return Rules({})
+    dp = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    table = {
+        "batch": dp, "fsdp": dp, "tp": "model", "tp_kv": "model",
+        "expert": "model", "vocab_tp": "model", "seq": None,
+    }
+    kind = SHAPES[shape]["kind"]
+    seq_axes: list = []
+    if cfg is not None and kind in ("decode", "prefill") \
+            and cfg.n_kv % mesh.shape["model"] != 0:
+        table["tp_kv"] = None
+        seq_axes.append("model")
+    if SHAPES[shape]["batch"] == 1:
+        table["batch"] = None
+        seq_axes = list(dp) + seq_axes
+    table["seq"] = tuple(seq_axes) if seq_axes else None
+    return Rules(table)
+
+
+def lm_param_specs(cfg: LMConfig, mesh, rules: Rules) -> dict:
+    """The reference's ``lm_param_specs``: a spec tree shaped as the
+    reference's ``lm_init`` dict (per-layer weights stacked ``(L, …)``),
+    divisibility-aware."""
+    d, h, kv, dh, L = (cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim,
+                       cfg.n_layers)
+    s = partial(spec, mesh, rules)
+    specs = {
+        "embed": s((cfg.vocab, d), "vocab_tp", "fsdp"),
+        "unembed": s((d, cfg.vocab), "fsdp", "vocab_tp"),
+        "final_ln": (),
+        "layers": {
+            "ln1": (), "ln2": (),
+            "wq": s((L, d, h * dh), None, "fsdp", "tp"),
+            "wk": s((L, d, kv * dh), None, "fsdp", "tp_kv"),
+            "wv": s((L, d, kv * dh), None, "fsdp", "tp_kv"),
+            "wo": s((L, h * dh, d), None, "tp", "fsdp"),
+        },
+    }
+    lay = specs["layers"]
+    if cfg.qkv_bias:
+        lay["bq"] = s((L, h * dh), None, "tp")
+        lay["bk"] = s((L, kv * dh), None, "tp_kv")
+        lay["bv"] = s((L, kv * dh), None, "tp_kv")
+    if cfg.qk_norm:
+        lay["q_norm"] = ()
+        lay["k_norm"] = ()
+    if cfg.moe is None:
+        lay["w1"] = s((L, d, cfg.d_ff), None, "fsdp", "tp")
+        lay["w3"] = s((L, d, cfg.d_ff), None, "fsdp", "tp")
+        lay["w2"] = s((L, cfg.d_ff, d), None, "tp", "fsdp")
+    else:
+        m = cfg.moe
+        moe = {
+            "router": s((L, d, m.num_experts), None, "fsdp", None),
+            "w1": s((L, m.num_experts, d, m.d_ff), None, "expert", "fsdp",
+                    None),
+            "w3": s((L, m.num_experts, d, m.d_ff), None, "expert", "fsdp",
+                    None),
+            "w2": s((L, m.num_experts, m.d_ff, d), None, "expert", None,
+                    "fsdp"),
+        }
+        if m.n_shared:
+            moe["shared"] = {
+                "w1": s((L, d, m.d_ff_shared), None, "fsdp", "tp"),
+                "w3": s((L, d, m.d_ff_shared), None, "fsdp", "tp"),
+                "w2": s((L, m.d_ff_shared, d), None, "tp", "fsdp"),
+            }
+        lay["moe"] = moe
+    return specs
+
+
+def lm_param_spec_of(name: str, specs: dict) -> tuple:
+    """The spec of the port's parameter ``name`` (``LM.named_parameters``)
+    from the reference-shaped tree ``specs``: a layer's tensor takes its
+    stacked spec without the leading layer axis; a norm's ``.weight``
+    its norm's spec."""
+    parts = name.split(".")
+    if parts[-1] == "weight":
+        parts = parts[:-1]
+    if parts[0] == "layers":
+        node = specs["layers"]
+        for p in parts[2:]:
+            node = node[p]
+        return node[1:]
+    return specs[parts[0]]
+
+
+def _named_shardings(model: LM, mesh, specs: dict) -> Optional[dict]:
+    if mesh is None:
+        return None
+    return tree_shardings(mesh, {n: lm_param_spec_of(n, specs)
+                                 for n, _ in model.named_parameters()})
+
+
+def train_micro(cfg: LMConfig, batch: int, mesh) -> int:
+    """The reference cell's gradient-accumulation micro-batches
+    (``lm_common.py:167-170``): 4 on a mesh when the batch splits in 4;
+    then 8 for an MoE of ``d_model ≥ 4096`` when the batch splits in 8
+    (with or without a mesh, as the reference's condition reads)."""
+    micro = 4 if (mesh is not None and batch % 4 == 0) else 1
+    if micro and cfg.moe is not None and cfg.d_model >= 4096 \
+            and batch % 8 == 0:
+        micro = 8
+    return micro
+
+
+def build_lm_cell(cfg: LMConfig, shape: str, mesh, *,
+                  device: str | torch.device = "cuda") -> CellSpec:
+    """The reference's ``build_lm_cell`` on fake tensors of ``device``.
+
+    ``train_4k``: :func:`train_step` with :func:`train_micro`
+    micro-batches on fp32 weights and AdamW state (dense archs replicate
+    the weights over the data axes, ZeRO-1, while the state keeps FSDP;
+    MoE archs keep FSDP). ``prefill_32k``: ``lm_prefill`` on bf16
+    weights. ``decode_32k``/``long_500k``: one ``lm_decode_step`` on bf16
+    weights at the last position of a full bf16 cache."""
+    info = SHAPES[shape]
+    rules = lm_rules(mesh, shape, cfg)
+    pspecs = lm_param_specs(cfg, mesh, rules)
+    B, S = info["batch"], info["seq"]
+    dev = torch.device(device)
+    mode = FakeTensorMode()
+    meta = {"family": "lm", "cfg": cfg, "shape": shape, "info": info,
+            "rules": rules}
+
+    if info["kind"] == "train":
+        opt = train_optimizer()
+        micro = train_micro(cfg, B, mesh)
+        wspecs = pspecs
+        if cfg.moe is None:   # ZeRO-1: weights replicated over dp
+            wspecs = lm_param_specs(cfg, mesh,
+                                    Rules({**rules.table, "fsdp": None}))
+        with mode:
+            model = LM(cfg, dtype=torch.float32, device=dev)
+            params = dict(model.named_parameters())
+            opt_state = opt.init(params)
+            batch = {"tokens": torch.empty((B, S), dtype=torch.int32,
+                                           device=dev),
+                     "targets": torch.empty((B, S), dtype=torch.int32,
+                                            device=dev)}
+        bspec = {"tokens": spec(mesh, rules, (B, S), "batch", None),
+                 "targets": spec(mesh, rules, (B, S), "batch", None)}
+        in_sh = None
+        if mesh is not None:
+            osh = _named_shardings(model, mesh, pspecs)
+            in_sh = (_named_shardings(model, mesh, wspecs),
+                     AdamWState(step=None, mu=osh, nu=osh),
+                     tree_shardings(mesh, bspec))
+
+        def step(model, opt_state, batch):
+            return train_step(model, opt, opt_state, batch, cfg,
+                              micro=micro)
+
+        def make_args(seed: int, device):
+            dev = resolve_device(device)
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            model = lm_init(gen, cfg)
+            tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                   device=dev, dtype=torch.int32)
+            return (model, opt.init(dict(model.named_parameters())),
+                    {"tokens": tokens, "targets": tokens.roll(-1, 1)})
+
+        return CellSpec(step_fn=step, args=(model, opt_state, batch),
+                        in_shardings=in_sh, donate_argnums=(0, 1),
+                        kind="train", dtype=cfg.adtype, fake_mode=mode,
+                        make_args=make_args,
+                        notes=f"micro={micro}",
+                        meta={**meta, "micro": micro,
+                              "zero1": cfg.moe is None,
+                              "batch_spec": bspec["tokens"]})
+
+    cache_shape = (cfg.n_layers, B, S, cfg.n_kv, cfg.head_dim)
+    cache_spec = spec(mesh, rules, cache_shape, None, "batch", "seq",
+                      "tp_kv", None)
+    meta.update(micro=1, zero1=False,
+                batch_spec=spec(mesh, rules, (B, 1), "batch", None))
+    with mode:
+        model = LM(cfg, dtype=torch.bfloat16, device=dev)
+    psh = _named_shardings(model, mesh, pspecs)
+    if info["kind"] == "prefill":
+        with mode:
+            tokens = torch.empty((B, S), dtype=torch.int32, device=dev)
+
+        def step(model, tokens):
+            return lm_prefill(model, tokens, cfg)
+
+        def make_args(seed: int, device):
+            dev = resolve_device(device)
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            return (lm_init(gen, cfg, dtype=torch.bfloat16),
+                    torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                  device=dev, dtype=torch.int32))
+
+        in_sh = (None if mesh is None else
+                 (psh, tree_shardings(mesh, spec(mesh, rules, (B, S),
+                                                 "batch", None))))
+        out_sh = (None if mesh is None else
+                  (tree_shardings(mesh, spec(mesh, rules, (B, cfg.vocab),
+                                             "batch", "vocab_tp")),
+                   tree_shardings(mesh, {"k": cache_spec, "v": cache_spec})))
+        return CellSpec(step_fn=step, args=(model, tokens),
+                        in_shardings=in_sh, out_shardings=out_sh,
+                        kind="serve", dtype=cfg.adtype, fake_mode=mode,
+                        make_args=make_args, meta=meta)
+
+    # decode: one new token at the last position of a full cache
+    with mode:
+        cache = {"k": torch.empty(cache_shape, dtype=torch.bfloat16,
+                                  device=dev),
+                 "v": torch.empty(cache_shape, dtype=torch.bfloat16,
+                                  device=dev)}
+        token = torch.empty((B, 1), dtype=torch.int32, device=dev)
+
+    def step(model, cache, token, cache_len):
+        return lm_decode_step(model, token, cache, cache_len, cfg)
+
+    def make_args(seed: int, device):
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        model = lm_init(gen, cfg, dtype=torch.bfloat16)
+        cache = init_decode_cache(cfg, B, S, torch.bfloat16, device=dev)
+        token = torch.randint(0, cfg.vocab, (B, 1), generator=gen,
+                              device=dev, dtype=torch.int32)
+        return model, cache, token, S
+
+    csh = (None if mesh is None else
+           tree_shardings(mesh, {"k": cache_spec, "v": cache_spec}))
+    in_sh = (None if mesh is None else
+             (psh, csh, tree_shardings(mesh, spec(mesh, rules, (B, 1),
+                                                  "batch", None)), None))
+    out_sh = (None if mesh is None else
+              (tree_shardings(mesh, spec(mesh, rules, (B, cfg.vocab),
+                                         "batch", "vocab_tp")), csh))
+    return CellSpec(step_fn=step, args=(model, cache, token, S),
+                    in_shardings=in_sh, out_shardings=out_sh,
+                    donate_argnums=(1,), kind="serve", dtype=cfg.adtype,
+                    fake_mode=mode, make_args=make_args, meta=meta)
+
+
+# ---------------------------------------------------------------------------
+# Smoke runner shared by all LM archs (reduced dims, CPU-concrete)
+# ---------------------------------------------------------------------------
+def lm_smoke(cfg_full: LMConfig, *, model: Optional[LM] = None,
+             tokens: Optional[torch.Tensor] = None) -> dict:
+    """The reference's ``lm_smoke`` on the CPU at :func:`smoke_config`:
+    the loss of ``(2, 64)`` tokens against themselves
+    (:data:`SMOKE_CHUNKS`), one decode step on a zeroed ``(2, 32)`` fp32
+    cache, and a 16-token prefill. ``model`` and ``tokens`` default to
+    draws from seed 0 (pass the reference's, carried over, to compare).
+    Returns the loss and shapes; asserts finite outputs."""
+    cfg = smoke_config(cfg_full)
+    gen = torch.Generator().manual_seed(0)
+    if model is None:
+        model = lm_init(gen, cfg)
+    if tokens is None:
+        tokens = torch.randint(0, cfg.vocab, (2, 64), generator=gen)
+    with torch.no_grad():
+        loss = lm_loss(model, tokens, tokens, cfg, **SMOKE_CHUNKS)
+    cache = init_decode_cache(cfg, 2, 32, torch.float32, device="cpu")
+    logits, cache = lm_decode_step(model, tokens[:, :1], cache, 1, cfg)
+    pl, pc = lm_prefill(model, tokens[:, :16], cfg)
+    assert logits.shape == (2, cfg.vocab) and pl.shape == (2, cfg.vocab)
+    assert bool(torch.isfinite(loss)) and bool(torch.isfinite(logits).all())
+    return {"loss": float(loss), "logits_shape": tuple(logits.shape),
+            "prefill_cache_k": tuple(pc["k"].shape)}
+
+
+def make_lm_arch(name: str, cfg: LMConfig, family: str = "lm",
+                 description: str = "") -> Arch:
+    return Arch(
+        name=name, family=family, description=description,
+        shape_names=tuple(SHAPES),
+        build_cell=lambda shape, mesh, **kw: build_lm_cell(cfg, shape, mesh,
+                                                           **kw),
+        smoke=lambda: lm_smoke(cfg))

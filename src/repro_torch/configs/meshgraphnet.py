@@ -47,4 +47,5 @@ def _loss(model: MeshGraphNet, batch: dict, info: dict, shape: str
 
 ARCH = register(make_gnn_arch(GNNAdapter(
     name="meshgraphnet", init=_init, loss=_loss,
-    description="Encode-process-decode mesh GNN, 15 blocks, 128 hidden.")))
+    description="Encode-process-decode mesh GNN, 15 blocks, 128 hidden.",
+    exchange=(N_LAYERS, D_HIDDEN))))

@@ -40,4 +40,5 @@ def _loss(model: SchNet, batch: dict, info: dict, shape: str
 
 ARCH = register(make_gnn_arch(GNNAdapter(
     name="schnet", init=_init, loss=_loss,
-    description="SchNet continuous-filter convolutions, 300 RBF.")))
+    description="SchNet continuous-filter convolutions, 300 RBF.",
+    exchange=(N_INTER, D_HIDDEN))))

@@ -231,6 +231,10 @@ class TieredFeatureStore:
     promoted_rows: int = 0    # lifetime count of miss-driven DISK promotions
     # optional device cache in front of the cold tiers (GPUFeatureCache)
     cache: Optional[object] = dataclasses.field(default=None, repr=False)
+    # the device the tables were built on; migration replaces the tables
+    # under _mig_lock but never moves them, so this needs no lock
+    built_on: Optional[torch.device] = dataclasses.field(default=None,
+                                                         repr=False)
 
     @staticmethod
     def build(features: np.ndarray, plan: PlacementPlan, *,
@@ -300,11 +304,12 @@ class TieredFeatureStore:
                                     device=dev),
             warm_base=torch.as_tensor(base.astype(np.int32), device=dev),
             tier_np=tier_np, slot_np=slot_np,
-            _disk_miss_counts=np.zeros(n, dtype=np.int64))
+            _disk_miss_counts=np.zeros(n, dtype=np.int64), built_on=dev)
 
     @property
     def device(self) -> torch.device:
-        return self.hot.device
+        """The device of the HOT/WARM tables: the one they were built on."""
+        return self.built_on
 
     # -- snapshot and accounting ---------------------------------------------
     def _snapshot(self) -> tuple:
@@ -539,7 +544,7 @@ class TieredFeatureStore:
             uniq_np = uniq.cpu().numpy()
         # a single reference read: any published cache (or None) is valid,
         # cached rows being copies of the feature values
-        cache = self.cache
+        cache = self.cache  # quiverlint: disable=lock-discipline atomic reference read, any snapshot valid
         if cache is None or not include_host:
             self._count(device_gathers=gathers)
             return tier_path(uniq, uniq_np, include_host, snap)

@@ -73,6 +73,16 @@ class LaunchCounter:
             return self._n
 
 
+def launch_counters() -> dict[str, LaunchCounter]:
+    """The five kernels' launch counters by kernel name."""
+    from repro_torch.kernels import (embedding_bag, flash_attention,
+                                     gather_aggregate, segment_spmm,
+                                     tiered_gather)
+    return {m.__name__.rsplit(".", 1)[-1]: m.LAUNCHES
+            for m in (tiered_gather, gather_aggregate, embedding_bag,
+                      segment_spmm, flash_attention)}
+
+
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
     cand = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None

@@ -25,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import fake
 from repro_torch.kernels.embedding_bag import kernel, ref
 
 
@@ -32,8 +33,19 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
                   weights: Optional[torch.Tensor] = None, *,
                   mode: str = "sum") -> torch.Tensor:
     """EmbeddingBag over ``-1``-padded bags; see
-    :func:`ref.embedding_bag_ref`."""
+    :func:`ref.embedding_bag_ref`. Fake tensors take the dry-run's branch
+    (:mod:`repro_torch.kernels.fake`)."""
     tensors = (table, ids) if weights is None else (table, ids, weights)
+    if fake.is_fake(*tensors):
+        if mode not in ref.MODES:
+            raise ValueError(f"embedding_bag: mode must be one of "
+                             f"{ref.MODES}, got {mode!r}")
+        bsz, bag = ids.shape
+        d = table.shape[1]
+        cost = ref.cost(bsz, bag, d, table.element_size(),
+                        weighted=weights is not None)
+        return fake.fake_call("embedding_bag", cost, table, (bsz, d),
+                              table.dtype)
     if all(t.device.type == "cpu" for t in tensors):
         return ref.embedding_bag_ref(table, ids, weights, mode=mode)
     return kernel.embedding_bag_cuda(table, ids, weights, mode=mode)

@@ -42,6 +42,20 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
     return s.float()
 
 
+def cost(bsz: int, bag: int, d: int, elem: int, *, weighted: bool,
+         n_valid: Optional[int] = None) -> dict:
+    """The least work of one call on ``(bsz, bag)`` ids into ``(·, d)``
+    rows of ``elem`` bytes: bytes = each valid slot's row read once, the
+    int32 ids (and the weights, in the table's dtype) read once, the
+    ``(bsz, d)`` output written once; operations = an add a valid slot and
+    column (a multiply-add when weighted). Where the data is not known (a
+    fake tensor), every slot counts as valid."""
+    n_valid = bsz * bag if n_valid is None else n_valid
+    nbytes = (n_valid * d * elem + bsz * bag * (4 + (elem if weighted else 0))
+              + bsz * d * elem)
+    return {"flops": n_valid * d * (2 if weighted else 1), "bytes": nbytes}
+
+
 def embedding_bag_ref(table: torch.Tensor, ids: torch.Tensor,
                       weights: Optional[torch.Tensor] = None, *,
                       mode: str = "sum") -> torch.Tensor:

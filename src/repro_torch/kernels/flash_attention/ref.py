@@ -33,6 +33,24 @@ BLOCK_KV = 128  # the Pallas wrapper's default kv block
 FP32_TOL = 2e-5  # rtol = atol of the reference's tests/test_kernels.py
 
 
+def causal_pairs(sq: int, skv: int) -> int:
+    """(query, key) pairs a causal call scores: query ``i`` sees keys
+    ``0..min(i, Skv-1)`` (aligned top-left, as the kernel masks)."""
+    full = min(sq, skv)
+    return full * (full + 1) // 2 + max(sq - skv, 0) * skv
+
+
+def cost(b: int, sq: int, skv: int, h: int, kvh: int, dh: int, elem: int,
+         *, causal: bool = True) -> dict:
+    """The least work of one call: bytes = q and k/v read once and the
+    output written once; operations = ``4·dh`` a scored (query, key) pair
+    a head (q·kᵀ and p·v), over the causal pairs only when ``causal`` —
+    the kernel's own work, not the plain version's full square."""
+    pairs = causal_pairs(sq, skv) if causal else sq * skv
+    nbytes = (2 * b * sq * h * dh + 2 * b * skv * kvh * dh) * elem
+    return {"flops": 4 * b * h * dh * pairs, "bytes": nbytes}
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True) -> torch.Tensor:
     """q ``(B, Sq, H, dh)``; k/v ``(B, Skv, KV, dh)`` with ``H % KV == 0``.

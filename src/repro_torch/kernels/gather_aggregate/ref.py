@@ -8,7 +8,24 @@ unfused aggregation uses :func:`fan_sum` so fused == unfused bitwise.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+
+def cost(s: int, fan: int, d: int, elem: int, *,
+         read_rows: Optional[int] = None,
+         valid: Optional[int] = None) -> dict:
+    """The least work of one call on ``(s, fan)`` ids into ``(·, d)`` rows
+    of ``elem`` bytes: the int32 tier and slot read once, each of
+    ``read_rows`` distinct rows read once, the ``(s, d)`` output written
+    once; operations = an add a valid child and column. Where the data is
+    not known (a fake tensor), every child is valid and reads its own
+    row."""
+    valid = s * fan if valid is None else valid
+    read_rows = valid if read_rows is None else read_rows
+    return {"flops": valid * d,
+            "bytes": 8 * s * fan + read_rows * d * elem + s * d * elem}
 
 
 def fan_sum(x: torch.Tensor) -> torch.Tensor:

@@ -15,14 +15,24 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import fake
 from repro_torch.kernels.segment_spmm import kernel, ref
 
 
 def segment_spmm(ids: torch.Tensor, feat: torch.Tensor,
                  weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """ELL SpMM over ``-1``-padded ids; see
-    :func:`ref.segment_spmm_plain`."""
+    :func:`ref.segment_spmm_plain`. Fake tensors take the dry-run's
+    branch (:mod:`repro_torch.kernels.fake`)."""
     tensors = (ids, feat) if weights is None else (ids, feat, weights)
+    if fake.is_fake(*tensors):
+        n, dmax = ids.shape
+        m, d = feat.shape
+        cost = ref.cost(n, dmax, d, feat.element_size(),
+                        rows_read=min(m, n * dmax),
+                        weighted=weights is not None)
+        return fake.fake_call("segment_spmm", cost, feat, (n, d),
+                              feat.dtype)
     if all(t.device.type == "cpu" for t in tensors):
         return ref.segment_spmm_plain(ids, feat, weights)
     return kernel.segment_spmm_cuda(ids, feat, weights)

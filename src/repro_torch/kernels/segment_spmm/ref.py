@@ -76,6 +76,24 @@ def segment_spmm_plain(ids: torch.Tensor, feat: torch.Tensor,
     return out.to(feat.dtype)
 
 
+def cost(n: int, dmax: int, d: int, elem: int, *,
+         nnz: Optional[int] = None, rows_read: Optional[int] = None,
+         weighted: bool = False) -> dict:
+    """The least work of one call on an ``(n, dmax)`` table into ``(·,
+    d)`` rows of ``elem`` bytes: bytes = the int32 ids (and fp32 weights)
+    read once, each of ``rows_read`` distinct rows read once, the
+    ``(n, d)`` output written once; operations = one add a valid id and
+    column (a multiply-add when weighted). Where the data is not known (a
+    fake tensor), every slot counts as valid (``nnz = n·dmax``) and each
+    row is read once (``rows_read = nnz``; the caller caps it at the
+    table's rows)."""
+    nnz = n * dmax if nnz is None else nnz
+    rows_read = nnz if rows_read is None else rows_read
+    nbytes = (n * dmax * (8 if weighted else 4) + rows_read * d * elem
+              + n * d * elem)
+    return {"flops": nnz * d * (2 if weighted else 1), "bytes": nbytes}
+
+
 def coo_to_ell(src: np.ndarray, dst: np.ndarray, num_nodes: int,
                *, dmax: Optional[int] = None) -> np.ndarray:
     """Pack a COO edge list into the ``(N, Dmax)`` int32 ELL table: row

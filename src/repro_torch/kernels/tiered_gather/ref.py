@@ -2,7 +2,20 @@
 runs, and what ``chip_smoke.py`` holds the CUDA kernel against bitwise."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+
+def cost(m: int, d: int, elem: int, *,
+         read_rows: Optional[int] = None) -> dict:
+    """The least work of one call of ``m`` ids into ``(·, d)`` rows of
+    ``elem`` bytes: the int32 tier and slot read once, each of
+    ``read_rows`` distinct rows read once, the ``(m, d)`` output written
+    once; no arithmetic. Where the data is not known (a fake tensor),
+    each id reads its own row (``read_rows = m``)."""
+    read_rows = m if read_rows is None else read_rows
+    return {"flops": 0, "bytes": 8 * m + read_rows * d * elem + m * d * elem}
 
 
 def tiered_gather_ref(tier: torch.Tensor, slot: torch.Tensor,

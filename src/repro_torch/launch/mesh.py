@@ -8,6 +8,11 @@ share one card (the counterpart of running the reference on one host with
 ``--xla_force_host_platform_device_count``): work for the shards of one
 card is batched into one op, and a move between two shards of one card is
 no copy at all.
+
+:func:`make_production_mesh` gives the reference's production meshes by
+shape alone (:class:`ProductionMesh`, no devices): the dry-run
+(:mod:`repro_torch.launch.dryrun`) sizes each device's share of a cell
+on them.
 """
 from __future__ import annotations
 
@@ -53,6 +58,37 @@ class Mesh:
         for i, dev in enumerate(self.devices):
             out.setdefault(str(dev), (dev, []))[1].append(i)
         return [(dev, tuple(shards)) for dev, shards in out.values()]
+
+
+@dataclasses.dataclass(frozen=True)
+class ProductionMesh:
+    """A mesh of shape only: named axes and their sizes, no devices.
+
+    Attributes:
+        axis_names: the axes in order.
+        sizes: each axis' size, in the same order.
+    """
+
+    axis_names: tuple
+    sizes: tuple
+
+    @property
+    def shape(self) -> dict[str, int]:
+        """``{axis: size}`` in axis order, as ``jax.sharding.Mesh.shape``."""
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def world(self) -> int:
+        return mesh_world(self)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ProductionMesh:
+    """The reference's production mesh (``src/repro/launch/mesh.py:16``):
+    ``(16, 16)`` over ``("data", "model")``, or with ``multi_pod``
+    ``(2, 16, 16)`` over ``("pod", "data", "model")``."""
+    if multi_pod:
+        return ProductionMesh(("pod", "data", "model"), (2, 16, 16))
+    return ProductionMesh(("data", "model"), (16, 16))
 
 
 def make_host_mesh(world: Optional[int] = None, *,

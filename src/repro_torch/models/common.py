@@ -94,6 +94,16 @@ def mlp_from_numpy(params: Sequence[dict], *, act=F.silu) -> MLP:
     return MLP([dense_from_numpy(p) for p in params], act)
 
 
+def to_device(module: nn.Module, device: torch.device) -> nn.Module:
+    """``module.to(device)``, skipped when every parameter and buffer
+    already lies on ``device``: a module of fake tensors (the dry-run's)
+    cannot be moved by ``.to``, which swaps each tensor."""
+    tensors = list(module.parameters()) + list(module.buffers())
+    if all(t.device == device for t in tensors):
+        return module
+    return module.to(device)
+
+
 def count_params(model: nn.Module) -> int:
     """Number of parameter entries (the reference's ``count_params``)."""
     return sum(p.numel() for p in model.parameters())

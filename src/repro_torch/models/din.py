@@ -31,7 +31,7 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.kernels.embedding_bag import ops as bag_ops
-from repro_torch.models.common import mlp_from_numpy, mlp_init
+from repro_torch.models.common import mlp_from_numpy, mlp_init, to_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,7 +79,7 @@ def din_init(generator: torch.Generator, cfg: DINConfig, *,
     attn_dims, mlp_dims = _dims(cfg)
     model = DIN(item, cate, mlp_init(generator, attn_dims, act=torch.sigmoid),
                 mlp_init(generator, mlp_dims, act=F.silu))
-    return model.to(dev).eval()
+    return to_device(model, dev).eval()
 
 
 def din_from_numpy(params_np: dict, device: str | torch.device = "cuda"

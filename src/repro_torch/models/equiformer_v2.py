@@ -45,7 +45,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.graph.segment import segment_sum
 from repro_torch.models.common import (MLP, dense_from_numpy, dense_init,
-                                       linspace, mlp_from_numpy, mlp_init)
+                                       linspace, mlp_from_numpy, mlp_init,
+                                       to_device)
 from repro_torch.models.so3 import edge_rotation_blocks, lm_index, num_coeffs
 
 
@@ -261,7 +262,7 @@ def equiformer_init(generator: torch.Generator, *, n_layers: int = 12,
     out2 = dense_init(generator, channels, d_out)
     layers = [_layer_init(generator, channels, l_max, m_max, n_heads, n_rbf)
               for _ in range(n_layers)]
-    return EquiformerV2(embed, layers, out1, out2, feat_proj).to(dev)
+    return to_device(EquiformerV2(embed, layers, out1, out2, feat_proj), dev)
 
 
 def equiformer_from_numpy(params: dict, device: str | torch.device = "cuda"

@@ -46,7 +46,8 @@ from repro_torch.kernels.gather_aggregate.ref import fan_sum
 from repro_torch.kernels.segment_spmm.ops import segment_spmm_autograd
 from repro_torch.kernels.segment_spmm.ref import ell_pair, ell_table
 from repro_torch.models.common import (dense_from_numpy, dense_init,
-                                       layer_norm_from_numpy, layer_norm_init)
+                                       layer_norm_from_numpy, layer_norm_init,
+                                       to_device)
 
 
 class SAGELayer(nn.Module):
@@ -305,8 +306,8 @@ def gin_init(generator: torch.Generator, d_in: int, d_hidden: int,
                                dense_init(generator, d_hidden, d_hidden),
                                layer_norm_init(d_hidden)))
         dims_in = d_hidden
-    return GIN(layers, dense_init(generator, d_hidden, d_out)).to(
-        resolve_device(device))
+    return to_device(GIN(layers, dense_init(generator, d_hidden, d_out)),
+                     resolve_device(device))
 
 
 def gin_from_numpy(params_np: dict, device: str | torch.device = "cuda"
@@ -350,10 +351,13 @@ def gin_full_graph(model: GIN, x: torch.Tensor, src: torch.Tensor,
 
 def gin_graph_readout(model: GIN, x: torch.Tensor, src: torch.Tensor,
                       dst: torch.Tensor, graph_id: torch.Tensor, *,
-                      num_nodes: int, num_graphs: int) -> torch.Tensor:
+                      num_nodes: int, num_graphs: int,
+                      ell: tuple[torch.Tensor, torch.Tensor] | None = None
+                      ) -> torch.Tensor:
     """Graph regression/classification: the sum over layers of each
     layer's per-graph ``segment_sum`` of node embeddings, then the
-    readout. ``(num_graphs, d_out)``."""
+    readout. ``(num_graphs, d_out)``. ``ell`` as in
+    :func:`gin_full_graph`."""
     pooled = sum(segment_sum(h, graph_id, num_graphs)
-                 for h in _gin_layers(model, x, src, dst, num_nodes, None))
+                 for h in _gin_layers(model, x, src, dst, num_nodes, ell))
     return model.readout(pooled)

@@ -20,7 +20,7 @@ from repro_torch import resolve_device
 from repro_torch.graph.segment import segment_sum
 from repro_torch.models.common import (MLP, layer_norm_from_numpy,
                                        layer_norm_init, mlp_from_numpy,
-                                       mlp_init)
+                                       mlp_init, to_device)
 
 
 class MLPBlock(nn.Module):
@@ -95,7 +95,7 @@ def mgn_init(generator: torch.Generator, *, d_node_in: int, d_edge_in: int,
         for _ in range(n_layers)]
     decoder = mlp_init(generator, [d_hidden, d_hidden, d_out],
                        act=torch.relu)
-    return MeshGraphNet(node_enc, edge_enc, blocks, decoder).to(dev)
+    return to_device(MeshGraphNet(node_enc, edge_enc, blocks, decoder), dev)
 
 
 def mgn_from_numpy(params: dict, device: str | torch.device = "cuda"

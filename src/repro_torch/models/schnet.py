@@ -21,7 +21,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.graph.segment import segment_sum
-from repro_torch.models.common import dense_from_numpy, dense_init, linspace
+from repro_torch.models.common import (dense_from_numpy, dense_init,
+                                       linspace, to_device)
 
 LOG2 = math.log(2.0)
 
@@ -96,7 +97,7 @@ def schnet_init(generator: torch.Generator, *, d_hidden: int = 64,
                          dense_init(generator, d_hidden, d_hidden),
                          dense_init(generator, d_hidden, d_hidden))
              for _ in range(n_interactions)]
-    return SchNet(embed, inter, out1, out2, feat_proj).to(dev)
+    return to_device(SchNet(embed, inter, out1, out2, feat_proj), dev)
 
 
 def schnet_from_numpy(params: dict, device: str | torch.device = "cuda"

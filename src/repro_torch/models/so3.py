@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.kernels.fake import faking
 
 
 def num_coeffs(l_max: int) -> int:
@@ -108,20 +109,37 @@ def _z_rot_indices(l_max: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     return idx, neg, ms
 
 
-@lru_cache(maxsize=None)
 def _monomials(l: int, device: torch.device,
                dtype: torch.dtype) -> torch.Tensor:
     """:func:`_wigner_d_monomials` in ``dtype`` on ``device``, built once
-    per (l, device, dtype). Shared by every caller: read only."""
+    per (l, device, dtype) — or anew under a fake mode, whose tensors may
+    not outlive it. Shared by every caller: read only."""
+    if faking():
+        return _new_monomials(l, device, dtype)
+    return _cached_monomials(l, device, dtype)
+
+
+def _new_monomials(l: int, device: torch.device,
+                   dtype: torch.dtype) -> torch.Tensor:
     return torch.as_tensor(_wigner_d_monomials(l), dtype=dtype,
                            device=device)
 
 
-@lru_cache(maxsize=None)
+_cached_monomials = lru_cache(maxsize=None)(_new_monomials)
+
+
 def _z_block_masks(l: int, device: torch.device, dtype: torch.dtype
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The orders ``m = -l..l``, the identity and the m ↔ -m swap (zero at
-    m = 0) of one l block, in ``dtype`` on ``device``. Read only."""
+    m = 0) of one l block, in ``dtype`` on ``device``; cached as
+    :func:`_monomials` is. Read only."""
+    if faking():
+        return _new_z_block_masks(l, device, dtype)
+    return _cached_z_block_masks(l, device, dtype)
+
+
+def _new_z_block_masks(l: int, device: torch.device, dtype: torch.dtype
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     dim = 2 * l + 1
     idx = np.arange(dim)
     swap = np.zeros((dim, dim))
@@ -130,6 +148,9 @@ def _z_block_masks(l: int, device: torch.device, dtype: torch.dtype
     return (torch.arange(-l, l + 1, dtype=dtype, device=device),
             torch.eye(dim, dtype=dtype, device=device),
             torch.as_tensor(swap, dtype=dtype, device=device))
+
+
+_cached_z_block_masks = lru_cache(maxsize=None)(_new_z_block_masks)
 
 
 def _powers(c: torch.Tensor, s: torch.Tensor, l: int) -> torch.Tensor:

@@ -160,19 +160,17 @@ def test_figure_matches_reference(monkeypatch, name):
 
 
 def test_run_lists_the_reference_order():
-    """The runner's modules are the reference runner's, in its order, with
-    exactly ``scalability`` and ``roofline`` missing (they read the
-    dry-run's artifacts, not yet ported); its figures are this file's
-    eight cases, the rest its serving benchmarks."""
+    """The runner's modules are the reference runner's, in its order; its
+    figures are this file's eight cases, ``scalability`` and ``roofline``
+    read the dry-run's output, and the rest are its serving
+    benchmarks."""
     from benchmarks.run import MODULES as REF_MODULES
-    from repro_torch.bench.run import FIGURES, MODULES, SERVING
-    assert MODULES == [m for m in REF_MODULES
-                       if m not in ("scalability", "roofline")]
-    assert sorted(set(REF_MODULES) - set(MODULES)) == ["roofline",
-                                                       "scalability"]
+    from repro_torch.bench.run import DRYRUN, FIGURES, MODULES, SERVING
+    assert MODULES == REF_MODULES
+    assert sorted(DRYRUN) == ["roofline", "scalability"]
     assert FIGURES == [m for m in REF_MODULES if m in CASES]
     assert sorted(FIGURES) == sorted(CASES)
-    assert sorted(FIGURES + list(SERVING)) == sorted(MODULES)
+    assert sorted(FIGURES + list(SERVING) + list(DRYRUN)) == sorted(MODULES)
 
 
 def test_run_main_writes_json(tmp_path, capsys):
