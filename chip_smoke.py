@@ -219,12 +219,39 @@ Phases (any failed check exits non-zero before the result line):
              to fp32, within ``ref.tolerance`` of its plain version, timed
              beside the plain version and SDPA (the ``kernels`` entry's
              ``deepseek_moe_16b`` key). Then card vs CPU at full width with
-             2 layers and a 257-token prompt, fp32 and bf16: each layer's
+             2 layers and a 257-token prompt (weights drawn on the card and
+             copied), fp32 and bf16: each layer's
              ``top_e`` compared (a differing token is reported with its gap
              between the k-th and (k+1)-th router probabilities, and that
              layer's MoE output is held with the card's routing fed to the
              CPU: fp32 within 1e-4, bf16 within ``MOE_BF16_ULPS`` ulps);
              fp32 logits within 1e-4, bf16 within ``LM_BF16_CPU_TOL``.
+7d. moe_ep — expert-parallel MoE serving, after 7b's memory is freed:
+             phi3.5-moe-42b at its published widths, ``PHI_LAYERS`` of its
+             32 layers (the cut reported as ``reduced``), through
+             ``repro_torch.launch.lm --layers PHI_LAYERS`` at its defaults
+             (``PHI_REQUESTS`` requests of a 32,768-token prefill and 16
+             greedy decode steps; the second's times are steady), first at
+             ``--mesh-world 1`` and then at ``--mesh-world PHI_WORLD``:
+             the experts split by the reference's ``"expert"`` rule over
+             four logical shards of card 0 (the counterpart of the
+             reference's forced host devices), each shard's products run
+             on their own. Each run: exactly ``PHI_LAYERS``
+             ``flash_attention`` launches, all causal, the router stats as
+             in 7b, finite logits, peak under the card's memory, and three
+             expert products a layer and MoE call for each shard; at world
+             ``PHI_WORLD`` each shard holds its block of four experts. The
+             two runs' logits (prefill and every decode step) are held bit
+             for bit; should cuBLAS choose another algorithm for a batch
+             of four experts than for sixteen, the prefill's ``top_e`` is
+             compared layer by layer (each flip with its k/k+1 gap) and
+             the logits are held within ``LM_BF16_CPU_TOL`` with equal
+             generated ids. The kernel at layer 0's q/k/v there (1, 32768,
+             32|8, 128) against its plain version and timed (the
+             ``kernels`` entry's ``phi35_moe_42b`` key). Then card vs CPU
+             as in 7b, both sides on ``PHI_WORLD`` shards, the card's
+             sharded ``lm_init`` gathered back bit for bit to its
+             unsharded one. One ``{"moe_ep": ...}`` line.
 7c. lm train — qwen3-4b ``train_4k`` at its published widths and 36
              layers, last, with nothing else on the card: ``repro_torch.
              launch.lm --shape train_4k --steps LM_TRAIN_STEPS --batch 1``
@@ -356,6 +383,11 @@ GATEWAY_DEADLINE_MS = 250  # interactive requests' deadline in the gateway run
 CHURN_STEPS = 6            # control steps beside a reader thread
 MOE_ARCH = "deepseek-moe-16b"  # phase 7b: MoE serving at full width and depth
 MOE_KEY = "deepseek_moe_16b"   # its flash_attention numbers in the entry
+PHI_ARCH = "phi3.5-moe-42b"    # phase 7d: expert-parallel MoE serving
+PHI_KEY = "phi35_moe_42b"      # its flash_attention numbers in the entry
+PHI_LAYERS = 16    # phase 7d's depth cut: 42.1 GB of bf16 weights, one card
+PHI_WORLD = 4      # phase 7d's logical expert shards, all on card 0
+PHI_REQUESTS = 2   # phase 7d: the second request's times are steady
 # card vs CPU, one MoE layer in bf16 on the same routing: bf16 ulps of the
 # output's largest magnitude (both sides round the expert products, the
 # SiLU and each of the k combine adds; tests/test_torch_moe.py's bound)
@@ -2741,7 +2773,6 @@ def serve_lm(argv: list, capture: tuple) -> tuple[dict, dict, int]:
     import math
 
     import torch
-    from repro_torch.configs import LM_ARCHS
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch import lm as lm_launcher
@@ -2756,7 +2787,7 @@ def serve_lm(argv: list, capture: tuple) -> tuple[dict, dict, int]:
         return original(q, k, v, causal=causal)
 
     args = lm_launcher.parse_args(argv)
-    cfg = LM_ARCHS[args.arch]
+    cfg = lm_launcher.config_of(args)
     fa_ops.flash_attention = recorder
     fa.LAUNCHES.reset()
     try:
@@ -3023,11 +3054,42 @@ def lm_cpu_phase() -> None:
 # ---------------------------------------------------------------------------
 # phase 7b
 # ---------------------------------------------------------------------------
+def check_router_stats(arch: str, cfg, report: dict) -> None:
+    """Each request's prefill router stats: every expert's load at most
+    its capacity, and kept + dropped = T·k in every layer."""
+    import numpy as np
+    for r in report["requests"]:
+        st = r["moe_prefill"]
+        load = np.asarray(st["expert_load_by_layer"])
+        dropped = np.asarray(st["dropped_by_layer"])
+        check(load.shape == (cfg.n_layers, cfg.moe.num_experts)
+              and isinstance(st["dropped"], int),
+              f"{arch} router stats missing: {st.keys()}")
+        check(bool((load <= st["capacity"]).all()), f"{arch} an "
+              f"expert's load {load.max()} over its capacity "
+              f"{st['capacity']}")
+        check(bool((load.sum(1) + dropped == st["assignments"]).all()),
+              f"{arch} kept + dropped assignments != T·k "
+              f"({st['assignments']}) in some layer")
+
+
+def moe_serve_line(report: dict) -> dict:
+    """The report's summary for a JSON line: its requests' router stats
+    without the per-expert loads."""
+    return {k: report[k] for k in (
+        "arch", "layers", "mesh_world", "params", "active_params", "batch",
+        "prompt_len", "new_tokens", "peak_bytes")} | {"requests": [
+            {k: v for k, v in r.items() if k != "moe_prefill"}
+            | {"moe_prefill": {k: v for k, v in r["moe_prefill"].items()
+                               if k != "expert_load_by_layer"}}
+            for r in report["requests"]]}
+
+
 def moe_serve_phase() -> tuple[dict, dict, int]:
     """deepseek-moe-16b through the LM launcher at its defaults
     (:func:`serve_lm`), keeping layer 0's q/k/v; checks each request's
-    router stats: every expert's load at most its capacity and kept +
-    dropped = T·k in every layer. Returns (report, captures, launches)."""
+    router stats (:func:`check_router_stats`). Returns (report, captures,
+    launches)."""
     import numpy as np
     from repro_torch.configs import LM_ARCHS
     from repro_torch.core import expert_placement
@@ -3036,19 +3098,7 @@ def moe_serve_phase() -> tuple[dict, dict, int]:
     report, captured, launches = serve_lm(
         ["--arch", MOE_ARCH, "--device", "cuda"], (0,))
     req = report["requests"]
-    for r in req:
-        st = r["moe_prefill"]
-        load = np.asarray(st["expert_load_by_layer"])
-        dropped = np.asarray(st["dropped_by_layer"])
-        check(load.shape == (cfg.n_layers, cfg.moe.num_experts)
-              and isinstance(st["dropped"], int),
-              f"{MOE_ARCH} router stats missing: {st.keys()}")
-        check(bool((load <= st["capacity"]).all()), f"{MOE_ARCH} an "
-              f"expert's load {load.max()} over its capacity "
-              f"{st['capacity']}")
-        check(bool((load.sum(1) + dropped == st["assignments"]).all()),
-              f"{MOE_ARCH} kept + dropped assignments != T·k "
-              f"({st['assignments']}) in some layer")
+    check_router_stats(MOE_ARCH, cfg, report)
     st = req[0]["moe_prefill"]
     share = st["max_load_share_by_layer"]
     reps = expert_placement(np.asarray(st["expert_load_by_layer"][0]), 4, 4)
@@ -3064,33 +3114,29 @@ def moe_serve_phase() -> tuple[dict, dict, int]:
         f"assignments ({st['dropped_share']:.4f}), largest load over "
         f"capacity {min(share):.3f}-{max(share):.3f} by layer; "
         f"expert_placement(layer-0 load, 4, 4) = {reps.tolist()}")
-    print(json.dumps({"moe_serve": {k: report[k] for k in (
-        "arch", "params", "active_params", "batch", "prompt_len",
-        "new_tokens", "peak_bytes")} | {"requests": [
-            {k: v for k, v in r.items() if k != "moe_prefill"}
-            | {"moe_prefill": {k: v for k, v in r["moe_prefill"].items()
-                               if k != "expert_load_by_layer"}}
-            for r in req]}, "launches": launches,
-        "expert_placement_layer0_4_4": reps.tolist()}), flush=True)
+    print(json.dumps({"moe_serve": moe_serve_line(report),
+                      "launches": launches,
+                      "expert_placement_layer0_4_4": reps.tolist()}),
+          flush=True)
     return report, captured, launches
 
 
-def moe_flash_phase(captured: dict, launches: int) -> dict:
-    """``flash_attention`` at deepseek-moe-16b's layer-0 q/k/v (bf16 and
-    cast to fp32) against its plain version, and timed beside it and SDPA.
+def moe_flash_phase(arch: str, captured: dict, launches: int) -> dict:
+    """``flash_attention`` at ``arch``'s layer-0 q/k/v (bf16 and cast to
+    fp32) against its plain version, and timed beside it and SDPA.
     Returns the numbers for the kernel's ``kernels`` entry."""
     import torch
     q, k, v = captured[0]
     err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         err = max(err, hold_flash(q.to(dtype), k.to(dtype), v.to(dtype),
-                                  f"{MOE_ARCH} layer 0, {dtype}"))
+                                  f"{arch} layer 0, {dtype}"))
     times = flash_times(q, k, v)
     flops, nbytes = times["flops"], times["bytes"]
-    row = {"call_site": f"{MOE_ARCH} prefill", "shape": list(q.shape)
+    row = {"call_site": f"{arch} prefill", "shape": list(q.shape)
            + [k.shape[2]], "launches": launches, "max_abs_err": err,
            **times}
-    log(f"flash_attention at {MOE_ARCH} layer 0 {tuple(q.shape)}|"
+    log(f"flash_attention at {arch} layer 0 {tuple(q.shape)}|"
         f"{k.shape[2]} bf16 causal: within tolerance of plain (bf16, fp32; "
         f"max |diff| {err:.3g}); kernel {row['ms']:.3f} ms "
         f"({row['tflops']:.1f} TFLOP/s), {row['over_bound']:.2f}x the bound "
@@ -3101,25 +3147,57 @@ def moe_flash_phase(captured: dict, launches: int) -> dict:
     return row
 
 
-def moe_cpu_phase() -> None:
-    """deepseek-moe-16b at full width with ``LM_CPU_LAYERS`` layers and
-    ``LM_CPU_PROMPT`` tokens: the card's prefill against the port on the
-    CPU, same weights and prompt, fp32 and bf16. Each layer's experts
-    (``top_e``) are compared; where they differ, the tokens and their gap
-    between the k-th and (k+1)-th router probabilities are reported, and
-    that layer's MoE output is held with the card's routing fed to the
-    CPU."""
+def routing_flips(probs, top_e, other_e, k: int) -> tuple[list, list]:
+    """The tokens whose top-k experts differ between two runs, and each
+    one's gap between its k-th and (k+1)-th router probabilities."""
+    differ = (top_e != other_e).any(-1).nonzero().flatten()
+    if differ.numel() == 0:
+        return [], []
+    srt = probs.sort(-1, descending=True).values
+    return differ.tolist(), (srt[differ, k - 1] - srt[differ, k]).tolist()
+
+
+def moe_cpu_phase(arch: str, world: int) -> None:
+    """``arch`` at full width with ``LM_CPU_LAYERS`` layers and
+    ``LM_CPU_PROMPT`` tokens, its experts over ``world`` logical shards on
+    each side: the card's prefill against the port on the CPU, same
+    weights and prompt, fp32 and bf16. The weights are drawn on the card
+    by ``lm_init`` (on the mesh; with ``world`` > 1 gathered back and held
+    bit for bit against ``lm_init`` without a mesh there) and copied to
+    the CPU. Each layer's experts (``top_e``) are compared; where they
+    differ, the tokens and their gap between the k-th and (k+1)-th router
+    probabilities are reported, and that layer's MoE output is held with
+    the card's routing fed to the CPU."""
     import torch
-    from repro_torch.configs import deepseek_moe_16b
+    from repro_torch.configs import LM_ARCHS
     from repro_torch.kernels.flash_attention.ref import bf16_ulp
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import transformer as tf
 
-    cfg = dataclasses.replace(deepseek_moe_16b.CONFIG,
-                              n_layers=LM_CPU_LAYERS, dtype="float32")
+    cfg = dataclasses.replace(LM_ARCHS[arch], n_layers=LM_CPU_LAYERS,
+                              dtype="float32")
     k = cfg.moe.top_k
     t0 = time.perf_counter()
-    cpu = tf.lm_init(torch.Generator().manual_seed(0), cfg)
+
+    def mesh_on(dev):
+        return (make_host_mesh(world, device=dev, axis_name="model")
+                if world > 1 else None)
+
+    source = tf.lm_init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        mesh=mesh_on("cuda"))
+    if world > 1:
+        whole = tf.lm_init(torch.Generator(device="cuda").manual_seed(0),
+                           cfg).state_dict()
+        got = tf.gathered_state_dict(source, "cuda")
+        check(got.keys() == whole.keys()
+              and all(torch.equal(got[n], whole[n]) for n in whole),
+              f"{arch} lm_init on {world} shards does not gather back to "
+              "lm_init without a mesh bit for bit")
+        del whole, got
+    state = {n: v.cpu() for n, v in source.state_dict().items()}
+    del source
+    torch.cuda.empty_cache()
     tokens = torch.randint(0, cfg.vocab, (1, LM_CPU_PROMPT),
                            generator=torch.Generator().manual_seed(1))
     original = moe_mod.moe_route
@@ -3129,8 +3207,8 @@ def moe_cpu_phase() -> None:
                              cfg, dtype="bfloat16"))):
         runs = {}
         for dev in ("cuda", "cpu"):
-            model = tf.LM(cfg_d, dtype=dtype, device=dev)
-            model.load_state_dict(cpu.state_dict())
+            model = tf.LM(cfg_d, dtype=dtype, device=dev, mesh=mesh_on(dev))
+            model.load_state_dict(state)
             routes, outs = [], []
 
             def route(m, x, c):
@@ -3155,11 +3233,9 @@ def moe_cpu_phase() -> None:
         flips = []
         for i, ((x, probs, top_w, top_e), (_, _, _, p_e)) in enumerate(
                 zip(croutes, proutes)):
-            differ = (top_e != p_e).any(-1).nonzero().flatten()
-            if differ.numel() == 0:
+            differ, gaps = routing_flips(probs, top_e, p_e, k)
+            if not differ:
                 continue
-            srt = probs.sort(-1, descending=True).values
-            gaps = (srt[differ, k - 1] - srt[differ, k]).tolist()
             with torch.no_grad():
                 got, _ = moe_mod.moe_apply_routed(model.layers[i].moe, x,
                                                   cfg.moe, probs, top_w,
@@ -3168,32 +3244,176 @@ def moe_cpu_phase() -> None:
             diff = float((got.float() - want.float()).abs().max())
             allow = (CPU_TOL if dtype == torch.float32 else
                      MOE_BF16_ULPS * float(bf16_ulp(want.abs().max())))
-            check(diff <= allow, f"{MOE_ARCH} card vs CPU ({dtype}) layer "
+            check(diff <= allow, f"{arch} card vs CPU ({dtype}) layer "
                   f"{i}: MoE output with the card's routing max |diff| "
                   f"{diff:.3g} > {allow:.3g}")
-            flips.append({"layer": i, "tokens": differ.tolist(),
+            flips.append({"layer": i, "tokens": differ,
                           "gap_k_k1": gaps, "routed_max_abs_diff": diff})
         same_out = [float((a.float() - b.float()).abs().max())
                     for a, b in zip(couts, pouts)]
         del model
         ld = float((cl - pl).abs().max())
         limit = CPU_TOL if dtype == torch.float32 else LM_BF16_CPU_TOL
-        check(ld <= limit, f"{MOE_ARCH} card vs CPU ({dtype}) logits max "
+        check(ld <= limit, f"{arch} card vs CPU ({dtype}) logits max "
               f"|diff| {ld:.3g} > {limit}")
         report[str(dtype)] = {"logits_max_abs_diff": ld,
                               "moe_out_max_abs_diff": same_out,
                               "routing_differs": flips}
-        log(f"{MOE_ARCH} card vs CPU at full width, {LM_CPU_LAYERS} layers, "
-            f"prompt {LM_CPU_PROMPT}, {dtype}: logits max |diff| {ld:.3g} "
+        log(f"{arch} card vs CPU at full width, {LM_CPU_LAYERS} layers, "
+            f"prompt {LM_CPU_PROMPT}, {world} expert shard(s) a side, "
+            f"{dtype}: logits max |diff| {ld:.3g} "
             f"(limit {limit}); MoE outputs max |diff| by layer "
             f"{[f'{d:.3g}' for d in same_out]}; top_e equal in "
             f"{LM_CPU_LAYERS - len(flips)} of {LM_CPU_LAYERS} layers"
             + (f", differing: {flips}" if flips else ""))
-    log(f"{MOE_ARCH} card vs CPU set-up and runs: "
+    log(f"{arch} card vs CPU set-up and runs: "
         f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"moe_card_vs_cpu": {
-        "arch": MOE_ARCH, "layers": LM_CPU_LAYERS, "prompt": LM_CPU_PROMPT,
-        **report}}), flush=True)
+        "arch": arch, "world": world, "layers": LM_CPU_LAYERS,
+        "prompt": LM_CPU_PROMPT, **report}}), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 7d
+# ---------------------------------------------------------------------------
+def serve_recorded(argv: list, capture: tuple) -> tuple[dict, dict, int,
+                                                          dict]:
+    """:func:`serve_lm` on ``argv``, keeping (on the card, no copy while it
+    runs) every logits row the launcher's prefill and decode steps return
+    and every MoE call's router probabilities and ``top_e``. Returns
+    (report, captures, launches, {"logits": [...], "routes": [...]})."""
+    from repro_torch.launch import lm as lm_launcher
+    from repro_torch.models import moe as moe_mod
+
+    kept = {"logits": [], "routes": []}
+    prefill, decode = lm_launcher.lm_prefill, lm_launcher.lm_decode_step
+    route = moe_mod.moe_route
+
+    def rec_prefill(*a, **kw):
+        logits, cache = prefill(*a, **kw)
+        kept["logits"].append(logits)
+        return logits, cache
+
+    def rec_decode(*a, **kw):
+        logits, cache = decode(*a, **kw)
+        kept["logits"].append(logits)
+        return logits, cache
+
+    def rec_route(m, x, c):
+        probs, top_w, top_e = route(m, x, c)
+        kept["routes"].append((probs, top_e))
+        return probs, top_w, top_e
+
+    lm_launcher.lm_prefill, lm_launcher.lm_decode_step = (rec_prefill,
+                                                          rec_decode)
+    moe_mod.moe_route = rec_route
+    try:
+        report, captured, launches = serve_lm(argv, capture)
+    finally:
+        lm_launcher.lm_prefill, lm_launcher.lm_decode_step = prefill, decode
+        moe_mod.moe_route = route
+    kept["logits"] = [t.cpu() for t in kept["logits"]]
+    kept["routes"] = [(p.cpu(), e.cpu()) for p, e in kept["routes"]]
+    return report, captured, launches, kept
+
+
+def expert_parallel_phase() -> dict:
+    """phi3.5-moe-42b at its published widths and ``PHI_LAYERS`` layers on
+    one card through the LM launcher's serve path, at ``--mesh-world 1``
+    and then ``--mesh-world PHI_WORLD`` (logical shards of card 0), same
+    seed: ``PHI_REQUESTS`` requests of a 32,768-token prefill and 16
+    greedy decode steps each. Checks
+    :func:`serve_lm`'s (one causal ``flash_attention`` launch a layer,
+    finite logits, peak under the card), the router stats
+    (:func:`check_router_stats`), and at world ``PHI_WORLD`` three expert
+    products a layer and MoE call for each shard and its experts' ranges.
+    The two runs' logits are held bit for bit; if they differ, each
+    prefill layer's ``top_e`` is compared (flips reported with their
+    k/k+1 gaps), the logits held within ``LM_BF16_CPU_TOL`` and the
+    generated ids equal. Then ``flash_attention`` at layer 0's q/k/v
+    (:func:`moe_flash_phase`). Returns its ``kernels`` entry numbers."""
+    import torch
+    from repro_torch.configs import LM_ARCHS
+
+    base = ["--arch", PHI_ARCH, "--device", "cuda", "--layers",
+            str(PHI_LAYERS), "--requests", str(PHI_REQUESTS)]
+    cfg = dataclasses.replace(LM_ARCHS[PHI_ARCH], n_layers=PHI_LAYERS)
+    k, e = cfg.moe.top_k, cfg.moe.num_experts
+    runs = {}
+    for world, capture in ((1, ()), (PHI_WORLD, (0,))):
+        torch.cuda.reset_peak_memory_stats()
+        report, captured, launches, kept = serve_recorded(
+            base + ["--mesh-world", str(world)], capture)
+        check_router_stats(PHI_ARCH, cfg, report)
+        calls = len(report["requests"]) * (1 + report["new_tokens"]) \
+            * cfg.n_layers
+        check(report["expert_products"] == 3 * world * calls,
+              f"{PHI_ARCH} at --mesh-world {world}: "
+              f"{report['expert_products']} expert products, not 3 a "
+              f"shard for each of {calls} MoE calls")
+        (card,) = report["cards"]
+        step = e // world
+        check(card["shards"] == list(range(world)) and card["experts"]
+              == [[i * step, (i + 1) * step] for i in range(world)],
+              f"{PHI_ARCH} at --mesh-world {world}: shards and experts "
+              f"{card}")
+        reqs = report["requests"]
+        st = reqs[0]["moe_prefill"]
+        log(f"moe_ep ({PHI_ARCH}, {report['params']:,} params, "
+            f"{cfg.n_layers} of 32 layers, --mesh-world {world} on one "
+            f"card, {len(reqs)} requests): prefill "
+            f"{[round(r['prefill_ms'], 1) for r in reqs]} ms, decode "
+            f"{[round(r['decode_ms_per_token'], 2) for r in reqs]} "
+            f"ms/token (the first request pays the first calls), "
+            f"flash_attention "
+            f"launches {launches}, expert products "
+            f"{report['expert_products']}, weights "
+            f"{card['bytes'] / 2**30:.2f} GiB (planned "
+            f"{card['planned_bytes'] / 2**30:.2f} with both caches), peak "
+            f"{report['peak_bytes'] / 2**30:.2f} GiB; capacity "
+            f"{st['capacity']} a expert, dropped share "
+            f"{st['dropped_share']:.4f}")
+        runs[world] = (report, launches, kept)
+        if world == PHI_WORLD:
+            entry = moe_flash_phase(PHI_ARCH, captured, launches)
+        del captured
+        gc.collect()
+        torch.cuda.empty_cache()
+    (r1, _, k1), (rw, launches, kw) = runs[1], runs[PHI_WORLD]
+    bitwise = len(k1["logits"]) == len(kw["logits"]) and all(
+        torch.equal(a, b) for a, b in zip(k1["logits"], kw["logits"]))
+    ids1 = [r["generated"] for r in r1["requests"]]
+    idsw = [r["generated"] for r in rw["requests"]]
+    flips = []
+    if not bitwise:
+        for i, ((probs, e1), (_, ew)) in enumerate(
+                zip(k1["routes"][:cfg.n_layers], kw["routes"])):
+            tokens, gaps = routing_flips(probs, e1, ew, k)
+            if tokens:
+                flips.append({"layer": i, "tokens": tokens[:16],
+                              "count": len(tokens), "gap_k_k1": gaps[:16]})
+    diff = max(float((a - b).abs().max())
+               for a, b in zip(k1["logits"], kw["logits"]))
+    check(bitwise or (diff <= LM_BF16_CPU_TOL and ids1 == idsw),
+          f"{PHI_ARCH} --mesh-world {PHI_WORLD} against 1: logits max "
+          f"|diff| {diff:.3g} (limit {LM_BF16_CPU_TOL}), ids equal "
+          f"{ids1 == idsw}; routing flips {flips}")
+    log(f"moe_ep --mesh-world {PHI_WORLD} against 1 on one card: logits "
+        + ("bit for bit equal (prefill and every decode step)" if bitwise
+           else f"not bitwise: max |diff| {diff:.3g} (limit "
+                f"{LM_BF16_CPU_TOL}), generated ids equal; prefill top_e "
+                f"flips by layer {flips}"))
+    print(json.dumps({"moe_ep": {
+        "arch": PHI_ARCH, "reduced": {"n_layers": [32, cfg.n_layers]},
+        "world_1": moe_serve_line(r1) | {"cards": r1["cards"],
+                                         "expert_products":
+                                             r1["expert_products"]},
+        f"world_{PHI_WORLD}": moe_serve_line(rw) | {
+            "cards": rw["cards"], "expert_products": rw["expert_products"]},
+        "launches": launches, "logits_bitwise": bitwise,
+        "logits_max_abs_diff": diff, "ids_equal": ids1 == idsw,
+        "top_e_flips": flips}}), flush=True)
+    return entry
 
 
 def lm_train_phase() -> None:
@@ -3924,12 +4144,22 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     _, captured, launches = moe_serve_phase()
-    entry[MOE_KEY] = moe_flash_phase(captured, launches)
+    entry[MOE_KEY] = moe_flash_phase(MOE_ARCH, captured, launches)
     del captured
     gc.collect()
     torch.cuda.empty_cache()
-    moe_cpu_phase()
+    moe_cpu_phase(MOE_ARCH, 1)
     log(f"moe phase in {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7d. expert-parallel MoE serving (phi3.5-moe-42b), before 7c
+    t0 = time.perf_counter()
+    entry[PHI_KEY] = expert_parallel_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_cpu_phase(PHI_ARCH, PHI_WORLD)
+    log(f"expert-parallel phase in {time.perf_counter() - t0:.1f} s")
     results.append(entry)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3968,7 +4198,8 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("design", "floor_ms", "tflops", "over_bound", "over_library",
-             MOE_KEY, "launches_by_path", "paper_figures", "autotune")
+             MOE_KEY, PHI_KEY, "launches_by_path", "paper_figures",
+             "autotune")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
         for r in results]}), flush=True)

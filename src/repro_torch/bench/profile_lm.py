@@ -3,11 +3,13 @@ stages, decode per token, and the device's idle share.
 
     PYTHONPATH=src python -m repro_torch.bench.profile_lm \\
         [--arch qwen3-4b --prompt-len 32768 --new-tokens 16] \\
-        [--out chiprun_out/profile_lm.json]
+        [--layers N] [--mesh-world W] [--out profile_lm.json]
 
 The model is the launcher's (``repro_torch.launch.lm``: bf16 serving
-weights from ``lm_init`` with seed 0, batch 1). After a warm-up prefill at
-the full length:
+weights from ``lm_init`` with seed 0, batch 1), cut to ``--layers`` when
+given, and with ``--mesh-world W`` (an MoE arch) its experts split over W
+shards, one a card (round-robin over this host's cards). After a warm-up
+prefill at the full length:
 
 1. One prefill runs stage by stage with CUDA events around each stage of
    each layer, summed over the layers: ``embed``; ``norms_rope`` (ln1,
@@ -18,26 +20,34 @@ the full length:
    logits). For an MoE arch the FFN is split instead into ``router``
    (fp32 logits, softmax, top-k, and the router stats), ``dispatch`` (the
    slots and the dispatch buffer), ``experts`` (the three batched
-   products and the SiLU gate), ``combine`` (the gather back, the
+   products and the SiLU gate; on a mesh, between ``exchange_out``, the
+   copies of each shard's rows to its card, and ``exchange_back``, the
+   copies of its output rows into the home card's buffer: the events are
+   on the home card, so ``experts`` there is the home card's products and
+   ``exchange_back`` includes the wait for the other cards' products),
+   ``combine`` (the gather back, the
    weighting, the ordered fold and the residual add) and ``shared`` (the
    shared experts and their add). The report says whether its logits
    equal ``lm_prefill``'s bit for bit, i.e. whether the split timed the
    same computation.
-2. ``lm_prefill`` under ``torch.profiler``: host-clock wall, device busy
-   time (the sum of device kernel and copy durations) and idle share
-   ``1 - busy / wall``, and the device time by kernel name.
+2. ``lm_prefill`` under ``torch.profiler``: host-clock wall, the home
+   card's busy time (the sum of its kernel and copy durations) and idle
+   share ``1 - busy / wall``, each card's busy time, and the device time
+   by kernel name.
 3. ``new-tokens`` decode steps on the prefill's cache timed on the host
    clock, then ``new-tokens`` more under the profiler for the same
    busy/idle split.
 
 For an MoE arch the report adds the prefill's router stats
-(``repro_torch.launch.lm.moe_prefill_report``).
+(``repro_torch.launch.lm.moe_prefill_report``). Each card's peak device
+memory is reported.
 
 Prints one JSON report and writes it to ``--out`` if given. Needs a card.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from collections import defaultdict
@@ -50,6 +60,7 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.configs import LM_ARCHS
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.launch.lm import WEIGHT_DTYPE, moe_prefill_report
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import moe as moe_ops
 from repro_torch.models.attention import apply_rope
 from repro_torch.models.transformer import (_logits, _rope,
@@ -58,7 +69,8 @@ from repro_torch.models.transformer import (_logits, _rope,
                                             lm_prefill)
 
 STAGES = ("embed", "norms_rope", "qkv_o_gemm", "flash", "ffn", "router",
-          "dispatch", "experts", "combine", "shared", "cache", "unembed")
+          "dispatch", "exchange_out", "experts", "exchange_back", "combine",
+          "shared", "cache", "unembed")
 
 
 class _Stages:
@@ -104,9 +116,20 @@ def staged_moe(st: _Stages, h: torch.Tensor, x: torch.Tensor, m
     plan = moe_ops.moe_plan(top_e, cfg)
     dispatch = moe_ops.moe_dispatch(x, plan, cfg)
     st.stop()
-    st.start("experts")
-    y = moe_ops.moe_experts(m, dispatch)
-    st.stop()
+    if m.shards is None:
+        st.start("experts")
+        y = moe_ops.moe_experts(m, dispatch)
+        st.stop()
+    else:
+        st.start("exchange_out")
+        parts = moe_ops.moe_exchange_out(m, dispatch)
+        st.stop()
+        st.start("experts")
+        ys = moe_ops.moe_shard_products(m, parts)
+        st.stop()
+        st.start("exchange_back")
+        y = moe_ops.moe_exchange_back(m, ys, dispatch)
+        st.stop()
     st.start("combine")
     out = moe_ops.moe_combine(y, plan, top_w)
     st.stop()
@@ -180,16 +203,17 @@ def staged_prefill(model, tokens, cfg) -> tuple[torch.Tensor, dict]:
     return logits, st.totals()
 
 
-def _device_busy_ms(prof) -> tuple[float, dict[str, float]]:
-    busy_us, by_name = 0.0, defaultdict(float)
+def _device_busy_ms(prof) -> tuple[dict[int, float], dict[str, float]]:
+    """Busy ms by card index, and the eight largest device ms by name."""
+    by_card, by_name = defaultdict(float), defaultdict(float)
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             us = e.time_range.elapsed_us()
-            busy_us += us
+            by_card[e.device_index] += us / 1e3
             by_name[e.name] += us
     top = {n: us / 1e3 for n, us in sorted(by_name.items(),
                                            key=lambda kv: -kv[1])[:8]}
-    return busy_us / 1e3, top
+    return dict(sorted(by_card.items())), top
 
 
 def main(argv=None) -> dict:
@@ -197,14 +221,23 @@ def main(argv=None) -> dict:
     p.add_argument("--arch", default="qwen3-4b", choices=sorted(LM_ARCHS))
     p.add_argument("--prompt-len", type=int, default=32768)
     p.add_argument("--new-tokens", type=int, default=16)
+    p.add_argument("--layers", type=int, default=None,
+                   help="cut the depth to the first N layers")
+    p.add_argument("--mesh-world", type=int, default=1,
+                   help="shards of an MoE's experts (one a card)")
     p.add_argument("--out", default=None, help="write the report here")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_lm needs a CUDA device")
     dev = torch.device("cuda")
     cfg = LM_ARCHS[args.arch]
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    mesh = (make_host_mesh(args.mesh_world, device=dev, axis_name="model")
+            if args.mesh_world > 1 else None)
+    cards = sorted({d.index for d in mesh.devices} if mesh else {0})
     gen = torch.Generator(device=dev).manual_seed(0)
-    model = lm_init(gen, cfg, dtype=WEIGHT_DTYPE)
+    model = lm_init(gen, cfg, dtype=WEIGHT_DTYPE, mesh=mesh)
     tokens = torch.randint(0, cfg.vocab, (1, args.prompt_len),
                            generator=gen, device=dev)
     lm_prefill(model, tokens, cfg)
@@ -244,21 +277,30 @@ def main(argv=None) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         profiled_wall = decode(n)
     decode_busy, decode_top = _device_busy_ms(prof)
+    home_prefill = prefill_busy.get(0, 0.0)
+    home_decode = decode_busy.get(0, 0.0)
     report = {
         "card": torch.cuda.get_device_name(0), "arch": args.arch,
+        "layers": cfg.n_layers, "mesh_world": args.mesh_world,
+        "cards": len(cards),
         "prompt_len": args.prompt_len, "new_tokens": args.new_tokens,
         "prefill_stage_ms": stage_ms,
         "staged_equals_prefill": same,
         "prefill_staged_ms": sum(stage_ms.values()),
         "prefill_wall_ms": prefill_wall * 1e3,
-        "prefill_device_busy_ms": prefill_busy,
-        "prefill_device_idle_share": 1.0 - prefill_busy / 1e3 / prefill_wall,
+        "prefill_device_busy_ms": home_prefill,
+        "prefill_device_idle_share": 1.0 - home_prefill / 1e3 / prefill_wall,
+        "prefill_device_busy_ms_by_card": prefill_busy,
         "prefill_top_device_ms": prefill_top,
         "decode_ms_per_token": decode_wall * 1e3 / args.new_tokens,
-        "decode_device_busy_ms_per_token": decode_busy / args.new_tokens,
-        "decode_device_idle_share": 1.0 - decode_busy / 1e3 / profiled_wall,
+        "decode_device_busy_ms_per_token": home_decode / args.new_tokens,
+        "decode_device_idle_share": 1.0 - home_decode / 1e3 / profiled_wall,
+        "decode_device_busy_ms_per_token_by_card": {
+            c: ms / args.new_tokens for c, ms in decode_busy.items()},
         "decode_top_device_ms": decode_top,
         "peak_bytes": torch.cuda.max_memory_allocated(dev),
+        "peak_bytes_by_card": {c: torch.cuda.max_memory_allocated(c)
+                               for c in cards},
     }
     if moe is not None:
         report["moe_prefill"] = {k: v for k, v in moe.items()

@@ -1,7 +1,9 @@
 """Shared cell builders for the five LM architectures, ported from
 ``src/repro/configs/lm_common.py``: the shapes, the sharding rules and
 specs, the dry-run cell (:func:`build_lm_cell`), the smoke reduction
-(:func:`lm_smoke`) and the ``train_4k`` cell's step (:func:`train_step`).
+(:func:`lm_smoke`) and the ``train_4k`` cell's step (:func:`train_step`);
+and, the port's own, where a served LM lives on a mesh of cards
+(:func:`serve_placement`).
 
 Shapes (per assignment):
   train_4k    — train_step,  seq 4096,   global_batch 256
@@ -26,7 +28,10 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import Arch, CellSpec
-from repro_torch.models.transformer import (LM, LMConfig, init_decode_cache,
+from repro_torch.launch.mesh import ProductionMesh
+from repro_torch.models.moe import EXPERT_WEIGHTS, expert_ranges
+from repro_torch.models.transformer import (CACHE_DTYPE, LM, LMConfig,
+                                            init_decode_cache,
                                             lm_decode_step, lm_init, lm_loss,
                                             lm_prefill)
 from repro_torch.sharding import Rules, spec, tree_shardings
@@ -198,6 +203,74 @@ def lm_param_specs(cfg: LMConfig, mesh, rules: Rules) -> dict:
             }
         lay["moe"] = moe
     return specs
+
+
+@dataclasses.dataclass(frozen=True)
+class ServePlacement:
+    """Where a served LM lives on a one-axis ``"model"`` mesh of ``world``
+    shards, shard ``i`` on card ``i % cards``.
+
+    Attributes:
+        rules: ``lm_rules(mesh, "prefill_32k", cfg)``.
+        expert_ranges: each shard's experts ``[lo, hi)`` (empty without
+            MoE).
+        shard_cards: each shard's card.
+        weight_bytes: each card's weights: card 0, the home card, holds
+            every non-expert weight (embeddings, attention, norms, routers
+            in fp32, shared experts) and its shards' experts; every other
+            card its shards' experts.
+        cache_bytes: the KV cache on the home card.
+    """
+
+    rules: Rules
+    expert_ranges: tuple
+    shard_cards: tuple
+    weight_bytes: tuple
+    cache_bytes: int
+
+    @property
+    def card_bytes(self) -> tuple:
+        """Each card's weights, and the cache on the home card."""
+        return (self.weight_bytes[0] + self.cache_bytes,
+                *self.weight_bytes[1:])
+
+
+def serve_placement(cfg: LMConfig, world: int, *, cards: Optional[int] = None,
+                    cache_positions: int = 0, batch: int = 1
+                    ) -> ServePlacement:
+    """The placement of ``cfg`` served in bf16 weights on ``world``
+    shards over ``min(cards, world)`` cards (``world`` by default: one a
+    card), with a bf16 KV cache of ``batch`` sequences of
+    ``cache_positions`` positions in all (the launcher's prefill cache and
+    decode cache, which coexist while one is copied into the other).
+    Counts the bytes of every parameter an :class:`LM` allocates (on the
+    ``meta`` device: nothing is allocated) and splits the experts by the
+    reference's ``"expert"`` rule (:func:`~repro_torch.models.moe.
+    expert_ranges`: unsharded, all on the home card, when the experts do
+    not divide ``world``)."""
+    cards = world if cards is None else min(cards, world)
+    mesh = ProductionMesh(("model",), (world,))
+    rules = lm_rules(mesh, "prefill_32k", cfg)
+    model = LM(cfg, dtype=torch.bfloat16, device="meta")
+    expert = rest = 0
+    for name, p in model.named_parameters():
+        nbytes = p.numel() * p.element_size()
+        if name.split(".")[-2:-1] == ["moe"] \
+                and name.rsplit(".", 1)[-1] in EXPERT_WEIGHTS:
+            expert += nbytes
+        else:
+            rest += nbytes
+    ranges = (tuple(expert_ranges(mesh, rules, cfg.moe)) if cfg.moe
+              else ((0, 0),) * world)
+    per_expert = expert // cfg.moe.num_experts if cfg.moe else 0
+    shard_cards = tuple(i % cards for i in range(world))
+    weights = [0] * cards
+    weights[0] = rest
+    for (lo, hi), card in zip(ranges, shard_cards):
+        weights[card] += (hi - lo) * per_expert
+    cache = (2 * cfg.n_layers * batch * cache_positions * cfg.n_kv
+             * cfg.head_dim * CACHE_DTYPE.itemsize)
+    return ServePlacement(rules, ranges, shard_cards, tuple(weights), cache)
 
 
 def lm_param_spec_of(name: str, specs: dict) -> tuple:

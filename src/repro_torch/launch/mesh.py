@@ -5,9 +5,11 @@ One process holds an ordered tuple of devices with one axis name; shard
 ``i`` of a sharded tensor lives on ``devices[i]``. Asking for more shards
 than there are cards places them round-robin, so several logical shards
 share one card (the counterpart of running the reference on one host with
-``--xla_force_host_platform_device_count``): work for the shards of one
-card is batched into one op, and a move between two shards of one card is
-no copy at all.
+``--xla_force_host_platform_device_count``): the sharded store batches
+the work for the shards of one card into one op, and a move between two
+shards of one card is no copy at all. An LM's expert shards
+(:mod:`repro_torch.models.moe`) run each shard's products on their own,
+so one card runs the code that W cards run, minus the peer copies.
 
 :func:`make_production_mesh` gives the reference's production meshes by
 shape alone (:class:`ProductionMesh`, no devices): the dry-run
@@ -30,7 +32,8 @@ class Mesh:
 
     Attributes:
         devices: shard ``i`` lives on ``devices[i]``; a device may repeat.
-        axis_name: the axis' name (the launcher's is ``"x"``).
+        axis_name: the axis' name (the serve launcher's is ``"x"``, an
+            LM's ``"model"``).
     """
 
     devices: tuple
@@ -92,15 +95,18 @@ def make_production_mesh(*, multi_pod: bool = False) -> ProductionMesh:
 
 
 def make_host_mesh(world: Optional[int] = None, *,
-                   device: str | torch.device = "cuda") -> Mesh:
-    """A one-axis mesh (axis ``"x"``) of ``world`` shards over the cards
-    of this host.
+                   device: str | torch.device = "cuda",
+                   axis_name: str = "x") -> Mesh:
+    """A one-axis mesh of ``world`` shards over the cards of this host.
 
     Args:
         world: shards; defaults to the number of cards (1 on the CPU).
             Shards beyond the cards are placed round-robin.
         device: ``"cuda"`` (every card, from card 0) or ``"cpu"`` (every
             shard on the CPU).
+        axis_name: the axis' name: ``"x"`` for the serve and train
+            launchers' meshes, ``"model"`` for an LM's (the axis that the
+            reference's ``lm_rules`` binds ``"expert"`` to).
 
     Raises:
         RuntimeError: ``cuda`` was asked for and no card exists.
@@ -112,8 +118,9 @@ def make_host_mesh(world: Optional[int] = None, *,
     if world < 1:
         raise ValueError(f"a mesh needs at least one shard, got {world}")
     if dev.type == "cpu":
-        return Mesh((dev,) * world)
-    return Mesh(tuple(torch.device("cuda", i % cards) for i in range(world)))
+        return Mesh((dev,) * world, axis_name)
+    return Mesh(tuple(torch.device("cuda", i % cards) for i in range(world)),
+                axis_name)
 
 
 def mesh_world(mesh: Mesh) -> int:

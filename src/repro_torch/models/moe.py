@@ -46,6 +46,29 @@ load and the dropped count. Where they would drift:
   to the activation dtype after each add. :func:`moe_combine` folds them
   from zero in that order through a ``(T, k, d)`` view; ``index_add_``
   would add by atomics on the card, in no fixed order.
+
+Expert parallelism. The reference constrains the dispatch buffer and the
+expert outputs to the ``"expert"`` axis (``shard(dispatch, "expert", None,
+None)``), which its ``lm_rules`` binds to the mesh's ``"model"`` axis, and
+shards ``w1``/``w3``/``w2`` on it. A :class:`MoE` built on a mesh does
+that explicitly (single-controller, as :mod:`repro_torch.launch.mesh`):
+shard ``i`` holds experts ``[lo_i, hi_i)`` (:func:`expert_ranges`, the
+block layout of the constraint's divisibility-aware spec: all on the home
+shard when ``E`` does not divide the axis) as an :class:`ExpertShard` on
+``mesh.devices[i]``, and no whole expert tensor exists. :func:`moe_experts`
+copies each shard's rows of the buffer to its device
+(:func:`moe_exchange_out`), runs each shard's products there
+(:func:`moe_shard_products`) and copies the rows back into an ``(E, cap,
+d)`` buffer on the home device in expert order (:func:`moe_exchange_back`),
+all issued before any copy-back and with no host synchronisation: a copy
+between cards orders itself on both cards' streams. Each logical shard
+runs its own products, even where several share a card, so one card runs
+what W cards run, minus the peer copies. Everything else (router, plan,
+dispatch, combine, shared experts, stats) runs on the home device. A
+``torch.bmm`` over a block of experts computes each expert's product as
+the whole batch does, so the split changes where the products run, not
+their values on the CPU (the tests hold it bit for bit); on the card
+cuBLAS may choose another algorithm for another batch count.
 """
 from __future__ import annotations
 
@@ -59,6 +82,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import resolve_device
+from repro_torch.kernels.build import LaunchCounter
+from repro_torch.sharding import block_ranges, spec
+
+EXPERT_WEIGHTS = ("w1", "w3", "w2")
+# torch.bmm expert products: three for each shard that holds experts, at
+# every MoE call (one shard without a mesh)
+PRODUCTS = LaunchCounter()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,22 +125,64 @@ class SharedExperts(nn.Module):
         self.w2 = _param((d_ff, d_model), dtype, device)
 
 
+class ExpertShard(nn.Module):
+    """One shard's experts ``[lo, hi)`` on ``device``: ``w1``/``w3 (hi -
+    lo, d, ff)``, ``w2 (hi - lo, ff, d)``."""
+
+    def __init__(self, lo: int, hi: int, d_model: int, d_ff: int, *,
+                 dtype: torch.dtype, device):
+        super().__init__()
+        n = hi - lo
+        self.lo, self.hi = lo, hi
+        self.device = torch.device(device)
+        self.w1 = _param((n, d_model, d_ff), dtype, self.device)
+        self.w3 = _param((n, d_model, d_ff), dtype, self.device)
+        self.w2 = _param((n, d_ff, d_model), dtype, self.device)
+
+
+def expert_ranges(mesh, rules, cfg: MoEConfig) -> list[tuple[int, int]]:
+    """Each shard's experts ``[lo, hi)`` on a one-axis ``mesh``: the block
+    of the expert axis that the reference's ``shard(dispatch, "expert",
+    None, None)`` gives it under ``rules`` (divisibility-aware: when the
+    experts do not divide the axis it is unsharded, and the home shard
+    holds them all)."""
+    entry = spec(mesh, rules, (cfg.num_experts,), "expert")[0]
+    return block_ranges(mesh, entry, cfg.num_experts)
+
+
 class MoE(nn.Module):
     """One MoE FFN: ``router (d, E)`` in fp32 whatever ``dtype`` is (as the
     reference draws it), ``w1``/``w3 (E, d, ff)``, ``w2 (E, ff, d)``, and
     with ``n_shared`` a :class:`SharedExperts` ``shared``. Calling it runs
     :func:`moe_apply` and keeps the stats as ``last_stats`` (the last
-    call's; a prefill's are overwritten by the next decode step)."""
+    call's; a prefill's are overwritten by the next decode step).
+
+    With a ``mesh`` (and its ``rules``, which bind ``"expert"``), the
+    experts are ``shards``, one :class:`ExpertShard` a mesh shard on its
+    device (:func:`expert_ranges`), and there is no ``w1``/``w3``/``w2``;
+    the router and the shared experts stay on ``device``, the home
+    device. Without one, ``shards`` is None."""
 
     def __init__(self, d_model: int, cfg: MoEConfig, *,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 mesh=None, rules=None):
         super().__init__()
         e, ff = cfg.num_experts, cfg.d_ff
         self.cfg = cfg
         self.router = _param((d_model, e), torch.float32, device)
-        self.w1 = _param((e, d_model, ff), dtype, device)
-        self.w3 = _param((e, d_model, ff), dtype, device)
-        self.w2 = _param((e, ff, d_model), dtype, device)
+        if mesh is None:
+            self.shards = None
+            self.w1 = _param((e, d_model, ff), dtype, device)
+            self.w3 = _param((e, d_model, ff), dtype, device)
+            self.w2 = _param((e, ff, d_model), dtype, device)
+        else:
+            if rules is None:
+                raise ValueError("an MoE on a mesh needs the rules that "
+                                 "bind its \"expert\" axis")
+            self.shards = nn.ModuleList(
+                ExpertShard(lo, hi, d_model, ff, dtype=dtype, device=dev)
+                for (lo, hi), dev in zip(expert_ranges(mesh, rules, cfg),
+                                         mesh.devices))
         if cfg.n_shared:
             self.shared = SharedExperts(d_model, cfg.d_ff_shared,
                                         dtype=dtype, device=device)
@@ -126,17 +198,30 @@ def init_moe_(moe: MoE, generator: torch.Generator) -> MoE:
     """Draw ``moe``'s weights in place from ``generator`` with the
     reference's distributions (``moe_init``): ``router``, ``w1``, ``w3`` ~
     N(0, 1/d), ``w2`` ~ N(0, 1/ff); shared ``w1``/``w3`` ~ N(0, 1/d),
-    ``w2`` ~ N(0, 1/ffs). Each is drawn in its dtype and then scaled."""
+    ``w2`` ~ N(0, 1/ffs). Each is drawn in its dtype and then scaled. On a
+    mesh each expert weight is drawn whole on the generator's device, as
+    without one (so the bits are the same on the same device), then each
+    shard takes its slice and the whole tensor is freed."""
     d = moe.router.shape[0]
     sc_in = 1.0 / math.sqrt(d)
-    draws = [(moe.router, sc_in), (moe.w1, sc_in), (moe.w3, sc_in),
-             (moe.w2, 1.0 / math.sqrt(moe.cfg.d_ff))]
+    draws = [("router", sc_in), ("w1", sc_in), ("w3", sc_in),
+             ("w2", 1.0 / math.sqrt(moe.cfg.d_ff))]
+    for name, scale in draws:
+        if name == "router" or moe.shards is None:
+            getattr(moe, name).normal_(generator=generator).mul_(scale)
+            continue
+        part = getattr(moe.shards[0], name)
+        whole = torch.empty((moe.cfg.num_experts, *part.shape[1:]),
+                            dtype=part.dtype, device=generator.device)
+        whole.normal_(generator=generator).mul_(scale)
+        for s in moe.shards:
+            getattr(s, name).copy_(whole[s.lo:s.hi])
+        del whole
     if moe.cfg.n_shared:
         s = moe.shared
-        draws += [(s.w1, sc_in), (s.w3, sc_in),
-                  (s.w2, 1.0 / math.sqrt(moe.cfg.d_ff_shared))]
-    for p, scale in draws:
-        p.normal_(generator=generator).mul_(scale)
+        for p, scale in ((s.w1, sc_in), (s.w3, sc_in),
+                         (s.w2, 1.0 / math.sqrt(moe.cfg.d_ff_shared))):
+            p.normal_(generator=generator).mul_(scale)
     return moe
 
 
@@ -152,27 +237,47 @@ def moe_init(generator: torch.Generator, d_model: int, cfg: MoEConfig,
 def load_moe_(moe: MoE, params: dict) -> MoE:
     """Copy the reference's ``moe_init`` dict (``router``, ``w1``, ``w3``,
     ``w2`` and, with shared experts, ``shared``'s ``w1``/``w3``/``w2``)
-    into ``moe`` in place, cast to each parameter's dtype."""
+    into ``moe`` in place, cast to each parameter's dtype; on a mesh each
+    shard takes its experts' slice."""
     def put(p: torch.Tensor, arr) -> None:
         p.copy_(torch.tensor(np.asarray(arr, dtype=np.float32)))
 
-    for name in ("router", "w1", "w3", "w2"):
-        put(getattr(moe, name), params[name])
+    put(moe.router, params["router"])
+    for name in EXPERT_WEIGHTS:
+        if moe.shards is None:
+            put(getattr(moe, name), params[name])
+        else:
+            for s in moe.shards:
+                put(getattr(s, name), np.asarray(params[name])[s.lo:s.hi])
     if moe.cfg.n_shared:
-        for name in ("w1", "w3", "w2"):
+        for name in EXPERT_WEIGHTS:
             put(getattr(moe.shared, name), params["shared"][name])
     return moe
 
 
 def moe_from_numpy(params: dict, cfg: MoEConfig, *,
                    dtype: torch.dtype = torch.float32,
-                   device: str | torch.device = "cuda") -> MoE:
+                   device: str | torch.device = "cuda", mesh=None,
+                   rules=None) -> MoE:
     """The reference's ``moe_init`` dict → :class:`MoE` in ``dtype`` (the
     router in fp32) on ``device`` (the card unless the caller asks for the
-    CPU)."""
+    CPU); with ``mesh`` and ``rules``, its experts split over the mesh."""
     d_model = np.asarray(params["router"]).shape[0]
     return load_moe_(MoE(d_model, cfg, dtype=dtype,
-                         device=resolve_device(device)), params)
+                         device=resolve_device(device), mesh=mesh,
+                         rules=rules), params)
+
+
+def gather_experts(moe: MoE, device: str | torch.device = "cpu"
+                   ) -> dict[str, torch.Tensor]:
+    """``w1``, ``w3``, ``w2`` in the reference's ``(E, d, ff)`` / ``(E, ff,
+    d)`` layout on ``device``: the shards' slices in expert order (a
+    copy), or the whole tensors without a mesh."""
+    if moe.shards is None:
+        return {n: getattr(moe, n).detach().to(device)
+                for n in EXPERT_WEIGHTS}
+    return {n: torch.cat([getattr(s, n).detach().to(device)
+                          for s in moe.shards]) for n in EXPERT_WEIGHTS}
 
 
 class DispatchPlan(NamedTuple):
@@ -236,13 +341,56 @@ def moe_dispatch(x: torch.Tensor, plan: DispatchPlan, cfg: MoEConfig
     return buf[:-1].reshape(e, plan.cap, d)
 
 
+def _swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+            w2: torch.Tensor) -> torch.Tensor:
+    """``silu(x @ w1) · (x @ w3) @ w2`` as three ``torch.bmm`` in ``x``'s
+    dtype, counted in :data:`PRODUCTS`."""
+    dt = x.dtype
+    h1 = torch.bmm(x, w1.to(dt))
+    h3 = torch.bmm(x, w3.to(dt))
+    out = torch.bmm(F.silu(h1) * h3, w2.to(dt))
+    for _ in range(3):
+        PRODUCTS.add()
+    return out
+
+
+def _holding(moe: MoE) -> list[ExpertShard]:
+    return [s for s in moe.shards if s.hi > s.lo]
+
+
+def moe_exchange_out(moe: MoE, dispatch: torch.Tensor
+                     ) -> list[torch.Tensor]:
+    """Each expert-holding shard's rows ``dispatch[lo:hi]`` on its device
+    (no copy for a shard on the buffer's own device)."""
+    return [dispatch[s.lo:s.hi].to(s.device) for s in _holding(moe)]
+
+
+def moe_shard_products(moe: MoE, parts: list[torch.Tensor]
+                       ) -> list[torch.Tensor]:
+    """Each expert-holding shard's SwiGLU on its rows, on its device."""
+    return [_swiglu(x, s.w1, s.w3, s.w2)
+            for s, x in zip(_holding(moe), parts)]
+
+
+def moe_exchange_back(moe: MoE, ys: list[torch.Tensor],
+                      dispatch: torch.Tensor) -> torch.Tensor:
+    """The shards' output rows copied into one ``(E, cap, d)`` buffer on
+    the dispatch buffer's device, in expert order."""
+    y = torch.empty_like(dispatch)
+    for s, part in zip(_holding(moe), ys):
+        y[s.lo:s.hi].copy_(part)
+    return y
+
+
 def moe_experts(moe: MoE, dispatch: torch.Tensor) -> torch.Tensor:
     """Every expert's SwiGLU on its buffer rows: ``silu(b @ w1) · (b @
-    w3) @ w2`` as three ``torch.bmm`` in the buffer's dtype."""
-    dt = dispatch.dtype
-    h1 = torch.bmm(dispatch, moe.w1.to(dt))
-    h3 = torch.bmm(dispatch, moe.w3.to(dt))
-    return torch.bmm(F.silu(h1) * h3, moe.w2.to(dt))
+    w3) @ w2`` as three ``torch.bmm`` in the buffer's dtype; on a mesh,
+    each shard's three on its own device, every copy-in and product
+    issued before any copy-back."""
+    if moe.shards is None:
+        return _swiglu(dispatch, moe.w1, moe.w3, moe.w2)
+    parts = moe_exchange_out(moe, dispatch)
+    return moe_exchange_back(moe, moe_shard_products(moe, parts), dispatch)
 
 
 def moe_combine(y: torch.Tensor, plan: DispatchPlan, top_w: torch.Tensor

@@ -9,7 +9,11 @@ Covers the LM configurations of the reference:
   phi3.5-moe-42b               — MoE (16 experts top-2), GQA kv=8
 With ``cfg.moe`` set, each layer's FFN is a :class:`~repro_torch.models.
 moe.MoE` over the layer's ``B·S`` tokens, and each call's router stats
-stay readable as that module's ``last_stats``.
+stay readable as that module's ``last_stats``. An :class:`LM` built on a
+mesh (``lm_init(..., mesh=)``) splits each MoE layer's experts over it by
+the reference's ``"expert"`` rule and keeps the rest, the KV cache
+included, on the home device; ``lm_prefill`` and ``lm_decode_step`` are
+the same functions either way.
 
 Layout is the reference's: weights are ``(d_in, d_out)`` and applied as
 ``x @ w``, cast to the activation dtype; the cache is ``(L, B, S, KV,
@@ -50,7 +54,8 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.attention import (apply_rope, blockwise_attention,
                                           decode_attention, rope_angles)
 from repro_torch.models.common import RMSNorm, rms_norm
-from repro_torch.models.moe import MoE, MoEConfig, init_moe_, load_moe_
+from repro_torch.models.moe import (MoE, MoEConfig, gather_experts,
+                                    init_moe_, load_moe_)
 
 CACHE_DTYPE = torch.bfloat16  # the reference stores the KV cache in bf16
 # blockwise_attention's chunks in training: the reference LMConfig's
@@ -90,9 +95,11 @@ def _param(shape, dtype, device) -> nn.Parameter:
 class LMBlock(nn.Module):
     """One decoder layer: ``ln1``, ``wq/wk/wv/wo`` (+ ``bq/bk/bv`` with QKV
     bias, ``q_norm/k_norm`` with qk-norm), ``ln2``, and SwiGLU ``w1/w3/w2``
-    or, with ``cfg.moe``, a :class:`MoE` ``moe``."""
+    or, with ``cfg.moe``, a :class:`MoE` ``moe`` (its experts split over
+    ``mesh`` by ``rules`` when given)."""
 
-    def __init__(self, cfg: LMConfig, *, dtype: torch.dtype, device=None):
+    def __init__(self, cfg: LMConfig, *, dtype: torch.dtype, device=None,
+                 mesh=None, rules=None):
         super().__init__()
         d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
         self.cfg = cfg
@@ -114,7 +121,8 @@ class LMBlock(nn.Module):
             self.w3 = _param((d, cfg.d_ff), dtype, device)
             self.w2 = _param((cfg.d_ff, d), dtype, device)
         else:
-            self.moe = MoE(d, cfg.moe, dtype=dtype, device=device)
+            self.moe = MoE(d, cfg.moe, dtype=dtype, device=device,
+                           mesh=mesh, rules=rules)
 
     def qkv(self, h: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -172,34 +180,74 @@ class LMBlock(nn.Module):
         return h, aux
 
 
+def serve_rules(mesh, cfg: LMConfig):
+    """The rules an LM's experts are split by on ``mesh``: the reference's
+    ``lm_rules(mesh, "prefill_32k", cfg)``, whose ``"expert"`` is the
+    mesh's ``"model"`` axis."""
+    from repro_torch.configs.lm_common import lm_rules  # imports this module
+    if "model" not in mesh.shape:
+        raise ValueError(f"an LM's mesh is one axis named 'model', not "
+                         f"{tuple(mesh.shape)}")
+    return lm_rules(mesh, "prefill_32k", cfg)
+
+
 class LM(nn.Module):
     """``embed (V, d)``, one :class:`LMBlock` per layer, ``final_ln`` and
     ``unembed (d, V)``. Parameters are allocated, not initialised: use
-    :func:`lm_init` or :func:`lm_from_numpy`."""
+    :func:`lm_init` or :func:`lm_from_numpy`.
+
+    With a ``mesh`` (one axis, ``"model"``; :func:`~repro_torch.launch.
+    mesh.make_host_mesh`), each MoE layer's experts are split over it by
+    :func:`serve_rules` and everything else lives on ``device``, the home
+    device, which defaults to ``mesh.devices[0]``."""
 
     def __init__(self, cfg: LMConfig, *, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 device=None, mesh=None):
         super().__init__()
+        rules = None
+        if mesh is not None:
+            rules = serve_rules(mesh, cfg)
+            if device is None:
+                device = mesh.devices[0]
         self.cfg = cfg
+        self.mesh = mesh
         self.embed = _param((cfg.vocab, cfg.d_model), dtype, device)
         self.unembed = _param((cfg.d_model, cfg.vocab), dtype, device)
         self.final_ln = RMSNorm(cfg.d_model, dtype=dtype, device=device)
         self.layers = nn.ModuleList(
-            LMBlock(cfg, dtype=dtype, device=device)
+            LMBlock(cfg, dtype=dtype, device=device, mesh=mesh, rules=rules)
             for _ in range(cfg.n_layers))
+
+
+def _home(device, mesh) -> torch.device:
+    """``device``, which must be ``mesh``'s home device when a mesh is
+    given."""
+    device = torch.device(device)
+    if mesh is not None and (device.type, device.index or 0) != (
+            mesh.devices[0].type, mesh.devices[0].index or 0):
+        raise ValueError(f"the home device {device} is not the mesh's "
+                         f"first, {mesh.devices[0]}")
+    return device
 
 
 @torch.no_grad()
 def lm_init(generator: torch.Generator, cfg: LMConfig,
-            dtype: torch.dtype = torch.float32) -> LM:
+            dtype: torch.dtype = torch.float32, *, mesh=None) -> LM:
     """An :class:`LM` on ``generator``'s device with the reference's
     distributions (``lm_init``): ``embed ~ N(0, 0.02²)``, ``unembed``,
     ``wq/wk/wv/w1/w3 ~ N(0, 1/d)``, ``wo ~ N(0, 1/(H·dh))``, ``w2 ~ N(0,
     1/d_ff)``, unit norm gains, zero biases; with ``cfg.moe`` each layer
     draws its own experts (:func:`~repro_torch.models.moe.init_moe_`; the
     router in fp32). Each weight is drawn in its dtype and then scaled, as
-    the reference does."""
-    model = LM(cfg, dtype=dtype, device=generator.device)
+    the reference does.
+
+    With ``mesh`` (its home device the generator's), each MoE layer's
+    experts are split over it as they are drawn: a layer's whole expert
+    weight exists only while it is handed out, one at a time, and the
+    weights are bit for bit those of ``lm_init`` without a mesh on the
+    same device (:func:`gathered_state_dict`)."""
+    model = LM(cfg, dtype=dtype, device=_home(generator.device, mesh),
+               mesh=mesh)
     d, h, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
 
     def normal(p: torch.Tensor, scale: float) -> None:
@@ -229,13 +277,16 @@ def lm_init(generator: torch.Generator, cfg: LMConfig,
 @torch.no_grad()
 def lm_from_numpy(params: dict, cfg: LMConfig, *,
                   dtype: torch.dtype = torch.float32,
-                  device: str | torch.device = "cuda") -> LM:
+                  device: str | torch.device = "cuda", mesh=None) -> LM:
     """The reference's ``lm_init`` dict (``embed``, ``unembed``,
     ``final_ln`` and ``layers`` of stacked ``(L, …)`` arrays, weights
     ``(d_in, d_out)``; with ``cfg.moe``, ``layers["moe"]``'s stacked expert
     arrays, ``shared`` included) → :class:`LM` in ``dtype`` (MoE routers in
-    fp32) on ``device`` (the card unless the caller asks for the CPU)."""
-    model = LM(cfg, dtype=dtype, device=resolve_device(device))
+    fp32) on ``device`` (the card unless the caller asks for the CPU);
+    with ``mesh`` (whose home device is ``device``), its experts split
+    over the mesh."""
+    model = LM(cfg, dtype=dtype, device=_home(resolve_device(device), mesh),
+               mesh=mesh)
 
     def put(p: torch.Tensor, arr) -> None:
         p.copy_(torch.tensor(np.asarray(arr, dtype=np.float32)))
@@ -260,6 +311,22 @@ def lm_from_numpy(params: dict, cfg: LMConfig, *,
                                        lay["moe"]["shared"].items()}
             load_moe_(blk.moe, layer_moe)
     return model
+
+
+def gathered_state_dict(model: LM, device: str | torch.device = "cpu"
+                        ) -> dict[str, torch.Tensor]:
+    """``model``'s weights on ``device`` under the keys of an :class:`LM`
+    without a mesh: each MoE layer's experts gathered back into the
+    reference's ``(E, d, ff)`` layout (:func:`~repro_torch.models.moe.
+    gather_experts`). Load it into ``LM(cfg)`` to run the one-card
+    model."""
+    out = {k: v.detach().to(device) for k, v in model.state_dict().items()
+           if ".moe.shards." not in k}
+    if model.mesh is not None:
+        for i, blk in enumerate(model.layers):
+            for name, w in gather_experts(blk.moe, device).items():
+                out[f"layers.{i}.moe.{name}"] = w
+    return out
 
 
 def _rope(positions: torch.Tensor, cfg: LMConfig):

@@ -12,17 +12,20 @@ names, one entry an array dimension (``()`` is replicated). As
 ``PartitionSpec`` does, an entry of one name is that name and an empty
 one is None. The port has no GSPMD:
 the dry-run (:mod:`repro_torch.launch.dryrun`) reads these specs to size
-each device's share of a cell and its collectives, and nothing lays an
-array out by them.
+each device's share of a cell and its collectives, and one runtime lays
+an array out by them: an LM's MoE on a mesh holds each shard's block of
+the expert axis (:func:`block_ranges` of the dispatch buffer's spec;
+:mod:`repro_torch.models.moe`).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional
 
 __all__ = ["Rules", "NamedSharding", "make_shard_fn", "named", "spec",
            "tree_shardings", "mesh_axis_size", "is_spec", "shard_factor",
-           "spec_entry"]
+           "spec_entry", "block_ranges"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,9 +94,38 @@ def make_shard_fn(mesh, rules: Rules):
 
     In the reference this is ``with_sharding_constraint`` under a mesh,
     and the identity ``_noshard`` without one (one device). The port has
-    no GSPMD to constrain, and one card holds the whole array, so both
-    cases are the identity here."""
+    no GSPMD to constrain, so both cases are the identity here. Where the
+    port does split an array over a mesh, the split is explicit: an MoE
+    on a mesh holds each shard's experts on that shard's device and moves
+    the dispatch buffer's rows to them and back
+    (:func:`repro_torch.models.moe.moe_experts`), by the ranges that
+    :func:`block_ranges` gives for the constraint's spec."""
     return lambda x, *names: x
+
+
+def block_ranges(mesh, entry, dim: int) -> list[tuple[int, int]]:
+    """Each shard's contiguous ``[lo, hi)`` of one array dimension of size
+    ``dim`` whose spec entry is ``entry``, on a one-axis ``mesh``.
+
+    A sharded entry splits the dimension into equal blocks in shard order,
+    the layout of a ``NamedSharding`` over one mesh axis. An unsharded one
+    (None, as :func:`spec` leaves an entry whose dimension does not divide
+    its axis) puts the whole dimension on the home shard, shard 0; the
+    others hold an empty range at ``dim``.
+
+    Raises:
+        ValueError: ``entry`` names other axes than the mesh's one, or its
+            size does not divide ``dim``.
+    """
+    world = math.prod(int(s) for s in mesh.shape.values())
+    ways = mesh_axis_size(mesh, entry)
+    if ways == 1:
+        return [(0, dim)] + [(dim, dim)] * (world - 1)
+    if ways != world or dim % ways:
+        raise ValueError(f"entry {entry!r} of a dimension of {dim} does "
+                         f"not split it over a one-axis mesh of {world}")
+    step = dim // ways
+    return [(i * step, (i + 1) * step) for i in range(world)]
 
 
 def named(mesh, s: tuple) -> Optional[NamedSharding]:

@@ -476,6 +476,107 @@ def test_moe_card_matches_cpu(card):
         tok = want.argmax(-1)[:, None]
 
 
+# The rule of chip_smoke.py's phase 7d for expert shards against one card:
+# bit for bit, or, should cuBLAS pick another algorithm for a batch of 4
+# experts than for 16, the logits within its LM_BF16_CPU_TOL with equal
+# greedy ids.
+EP_LOGITS_TOL = 0.125
+EP_PROMPT = 1024
+EP_STEPS = 4
+
+
+def _phi_two_layers():
+    import dataclasses
+    from repro_torch.configs import phi35_moe_42b
+    return dataclasses.replace(phi35_moe_42b.CONFIG, n_layers=2)
+
+
+def _ep_serve(card, cfg, tokens, mesh=None):
+    """phi3.5 at full width from seed 0 in bf16 weights (on ``mesh``):
+    the prefill's logits and ``EP_STEPS`` greedy decode steps' on its
+    cache, on the CPU."""
+    from repro_torch.models import transformer as tf
+    model = tf.lm_init(torch.Generator(device=card).manual_seed(0), cfg,
+                       dtype=torch.bfloat16, mesh=mesh)
+    logits, pc = tf.lm_prefill(model, tokens, cfg)
+    cache = tf.init_decode_cache(cfg, 1, EP_PROMPT + EP_STEPS, device=card)
+    for key in ("k", "v"):
+        cache[key][:, :, :EP_PROMPT] = pc[key]
+    out = [logits]
+    for t in range(EP_STEPS):
+        logits, cache = tf.lm_decode_step(model, out[-1].argmax(-1)[:, None],
+                                          cache, EP_PROMPT + t + 1, cfg)
+        out.append(logits)
+    return [x.cpu() for x in out]
+
+
+def _held_like_one_card(want, got):
+    if all(torch.equal(a, b) for a, b in zip(want, got)):
+        return
+    diff = max(float((a - b).abs().max()) for a, b in zip(want, got))
+    assert diff <= EP_LOGITS_TOL, diff
+    assert all(torch.equal(a.argmax(-1), b.argmax(-1))
+               for a, b in zip(want, got))
+
+
+@pytest.mark.cuda
+def test_expert_shards_on_one_card_serve_as_one_card(card):
+    """phi3.5-moe-42b at full width, 2 layers: four logical expert shards
+    of card 0 against no mesh, a 1,024-token prefill and four decode
+    steps, each shard running three products a call."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    cfg = _phi_two_layers()
+    tokens = torch.randint(0, cfg.vocab, (1, EP_PROMPT), device=card,
+                           generator=torch.Generator(device=card)
+                           .manual_seed(1))
+    want = _ep_serve(card, cfg, tokens)
+    torch.cuda.empty_cache()
+    moe.PRODUCTS.reset()
+    got = _ep_serve(card, cfg, tokens,
+                    make_host_mesh(4, device="cuda", axis_name="model"))
+    assert moe.PRODUCTS.value == 3 * 4 * cfg.n_layers * (1 + EP_STEPS)
+    _held_like_one_card(want, got)
+
+
+@pytest.fixture
+def four_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs (one expert shard a card)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_expert_shards_on_four_cards(four_cards):
+    """phi3.5-moe-42b at full width, 2 layers, one expert shard a card:
+    each card's allocated bytes after the draw are its planned weights
+    (``serve_placement``: its experts; card 0 also everything else) within
+    1%, and the logits follow the one-card model's on card 0."""
+    from repro_torch.configs import lm_common
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tf
+    card = four_cards
+    cfg = _phi_two_layers()
+    tokens = torch.randint(0, cfg.vocab, (1, EP_PROMPT), device=card,
+                           generator=torch.Generator(device=card)
+                           .manual_seed(1))
+    want = _ep_serve(card, cfg, tokens)
+    torch.cuda.empty_cache()
+    mesh = make_host_mesh(4, device="cuda", axis_name="model")
+    assert [d.index for d in mesh.devices] == [0, 1, 2, 3]
+    before = [torch.cuda.memory_allocated(i) for i in range(4)]
+    model = tf.lm_init(torch.Generator(device=card).manual_seed(0), cfg,
+                       dtype=torch.bfloat16, mesh=mesh)
+    held = [torch.cuda.memory_allocated(i) - before[i] for i in range(4)]
+    planned = lm_common.serve_placement(cfg, 4).weight_bytes
+    for i in range(4):
+        assert abs(held[i] - planned[i]) <= 0.01 * planned[i], (i, held,
+                                                                 planned)
+    del model
+    torch.cuda.empty_cache()
+    _held_like_one_card(want, _ep_serve(card, cfg, tokens, mesh))
+
+
 def _cold_path_stores(card, n=4000, d=64):
     """A card store and a CPU store over the same features and plan."""
     from repro_torch.core import (TieredFeatureStore, TopologySpec,
