@@ -263,6 +263,23 @@ Phases (any failed check exits non-zero before the result line):
              activations against the fp64 witness within
              ``LM_BF16_LOSS_TOL`` (loss) and ``LM_BF16_GRAD_TOL``
              (gradients in norm).
+7e. lm tp train — codeqwen1.5-7b ``train_4k`` tensor-parallel, after
+             7c's memory is freed: its published widths, ``TP_LAYERS`` of
+             its 32 layers (1,686,196,224 parameters, 26.98 GB of fp32
+             state), through ``repro_torch.launch.lm --shape train_4k
+             --layers TP_LAYERS --batch 2 --micro 1`` three times, each
+             run's memory freed before the next: world 1, ``--mesh-world
+             4 --model 4`` (four logical model shards on card 0, the
+             weights split by the reference's ZeRO-1 rule) and
+             ``--mesh-world 4 --model 2`` (the data axis too). Each mesh
+             run: step 0's loss within ``LM_BF16_LOSS_TOL`` of world 1's,
+             the gathered AdamW mu after the last step within
+             ``LM_BF16_GRAD_TOL`` of world 1's in norm, each logical
+             shard's weights and mu/nu bytes equal to
+             ``lm_common.train_placement``'s; every run finite, its peak
+             under the card's memory, step ms by stage (forward, backward,
+             the data-axis sum, optimizer, gather) logged. One
+             ``{"lm_tp_train": ...}`` line.
 8. figures — the paper's evaluation, last, after the earlier phases'
              memory is freed: the eight modules of ``repro_torch.bench.run``
              on ``cuda`` at the reference's sizes, then
@@ -437,6 +454,11 @@ LM_TRAIN_PARAMS = 4_411_415_040
 # ran it)
 LM_BF16_LOSS_TOL = 2e-2
 LM_BF16_GRAD_TOL = 5e-2
+TP_ARCH = "codeqwen1.5-7b"  # phase 7e: tensor-parallel train_4k
+TP_LAYERS = 4              # phase 7e's depth cut: 26.98 GB of fp32 state
+TP_PARAMS = 1_686_196_224  # its parameter elements, QKV biases included
+TP_STEPS = 2               # phase 7e: steps a run (B 2, --micro 1)
+TP_MESHES = ((4, 4), (4, 2))  # (--mesh-world, --model), all on card 0
 
 
 def log(msg: str) -> None:
@@ -3502,6 +3524,100 @@ def lm_train_phase() -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 7e
+# ---------------------------------------------------------------------------
+def lm_tp_train_phase() -> None:
+    """codeqwen1.5-7b ``train_4k`` at its published widths, ``TP_LAYERS``
+    of its 32 layers, through ``repro_torch.launch.lm --shape train_4k``
+    (fp32 weights and AdamW state, bf16 activations, 4,096 positions, B 2,
+    ``--micro 1``, ``TP_STEPS`` steps from the same seed), three times,
+    each run's memory freed before the next: world 1; ``--mesh-world 4
+    --model 4`` (four logical model shards on card 0); ``--mesh-world 4
+    --model 2`` (the data axis too). The three runs do the same
+    arithmetic but for the shards' sums. Each mesh run: step 0's loss
+    within ``LM_BF16_LOSS_TOL`` of world 1's, the gathered AdamW mu after
+    the last step within ``LM_BF16_GRAD_TOL`` of world 1's in norm, each
+    logical shard's weights and mu/nu bytes equal to
+    ``lm_common.train_placement``'s; every run: finite losses, step 0
+    between ln V and ln V + 1.5, the peak under the card's memory, step
+    ms by stage logged. One ``{"lm_tp_train": ...}`` line."""
+    import math
+
+    import torch
+    from repro_torch.configs import LM_ARCHS, lm_common
+    from repro_torch.launch import lm as lm_launcher
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    vocab = LM_ARCHS[TP_ARCH].vocab
+    base = ["--arch", TP_ARCH, "--shape", "train_4k", "--layers",
+            str(TP_LAYERS), "--steps", str(TP_STEPS), "--batch", "2",
+            "--micro", "1", "--device", "cuda"]
+    lines, mu1, loss1 = {}, None, None
+    for world, model in ((1, 1),) + TP_MESHES:
+        keep = {}
+        t0 = time.perf_counter()
+        report = lm_launcher.train(lm_launcher.parse_args(
+            base + ["--mesh-world", str(world), "--model", str(model)]),
+            keep=keep)
+        seconds = time.perf_counter() - t0
+        key = f"world_{world}_model_{model}"
+        losses, stages = report["losses"], report["stage_ms"]
+        log(f"lm tp train {key} ({report['param_elements']:,} parameters, "
+            f"{TP_LAYERS} layers, batch {report['batch']} in "
+            f"{report['micro']} micro-batch(es), data {report['data']} x "
+            f"model {report['model']}): losses {losses} (ln V = "
+            f"{math.log(vocab):.4f}), step ms "
+            f"{[round(x, 1) for x in report['step_ms']]}, stages "
+            f"{[{k: round(v, 2) for k, v in st.items()} for st in stages]}, "
+            f"peak {report['peak_bytes'] / 2**30:.2f} GiB of "
+            f"{total / 2**30:.2f}, {seconds:.1f} s")
+        check(report["param_elements"] == TP_PARAMS
+              and report["seq"] == 4096,
+              f"lm tp train {key} ran {report['param_elements']:,} "
+              f"parameters at seq {report['seq']}")
+        check(all(math.isfinite(x) for x in losses)
+              and 0 < losses[0] - math.log(vocab) < 1.5,
+              f"lm tp train {key} losses {losses}")
+        check(report["peak_bytes"] < total, f"lm tp train {key} peak "
+              f"{report['peak_bytes']} B over the card's {total} B")
+        sb = report["shard_bytes"]
+        check(sb["weights"] == sb["planned_weights"]
+              and sb["state"] == sb["planned_state"],
+              f"lm tp train {key}: shard bytes {sb} against the placement")
+        model_, state = keep.pop("model"), keep.pop("opt_state")
+        line = {"losses": losses, "step_ms": report["step_ms"],
+                "stage_ms": stages, "peak_bytes": report["peak_bytes"],
+                "cards": report["cards"], "shard_bytes": sb,
+                "seconds": seconds}
+        if world == 1:
+            mu1, loss1 = dict(state.mu), losses[0]
+        else:
+            mu = lm_common.gathered_opt_state(model_, state,
+                                              device="cuda")["mu"]
+            num = math.sqrt(sum(float(((mu[k] - mu1[k]) ** 2).sum())
+                                for k in mu1))
+            den = math.sqrt(sum(float((mu1[k] ** 2).sum()) for k in mu1))
+            diff = abs(losses[0] - loss1)
+            check(diff <= LM_BF16_LOSS_TOL and num / den <= LM_BF16_GRAD_TOL,
+                  f"lm tp train {key} against world 1: step 0 loss |diff| "
+                  f"{diff:.3g} (limit {LM_BF16_LOSS_TOL}), mu {num / den:.3g}"
+                  f" of the norm (limit {LM_BF16_GRAD_TOL})")
+            log(f"lm tp train {key} against world 1: step 0 loss |diff| "
+                f"{diff:.3g}, mu after step {TP_STEPS - 1} {num / den:.3g} "
+                "of its norm; each shard's bytes = train_placement")
+            line.update(loss0_abs_diff=diff, mu_rel_diff=num / den)
+            del mu
+        lines[key] = line
+        del model_, state, keep
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"lm_tp_train": {
+        "arch": TP_ARCH, "reduced": {"n_layers": [32, TP_LAYERS],
+                                     "batch": [256, 2]},
+        "params": TP_PARAMS, **lines}}), flush=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 8
 # ---------------------------------------------------------------------------
 FIGURE_STORES = ("quiver", "hash", "degree", "freq")  # placement_compare's
@@ -4168,6 +4284,13 @@ def main() -> None:
     t0 = time.perf_counter()
     lm_train_phase()
     log(f"lm train phase in {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7e. codeqwen1.5-7b train_4k, tensor-parallel on logical shards
+    t0 = time.perf_counter()
+    lm_tp_train_phase()
+    log(f"lm tp train phase in {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -6,7 +6,9 @@ batch 4 and 96.
 
 The paper's claim is checked as the reference checks it: the executor
 PSGS routes each batch to must take at most 1.5× the better static
-executor's time, plus 1 ms.
+executor's time, plus 1 ms. Both executors are timed in alternation
+(``interleaved_times``), the median of each, so that a burst of load on
+the host's shared cores does not fall on one of them alone.
 """
 from __future__ import annotations
 
@@ -17,6 +19,22 @@ from repro_torch.bench.common import (build_serving_stack, close_executors,
                                       emit, fused_lookups, make_executors,
                                       timeit)
 from repro_torch.serving import HybridScheduler
+
+ROUNDS = 11  # alternating timed calls of each executor
+
+
+def interleaved_times(host, device_fn, *, rounds: int = ROUNDS,
+                      device: str | torch.device = "cuda") -> tuple:
+    """Median seconds of ``host()`` and of ``device_fn()`` over ``rounds``
+    alternating calls of each (two untimed calls of each first). The host
+    shares its cores, so a stretch of contention lands on both executors
+    alike instead of on whichever was being timed then."""
+    th, td = [], []
+    for r in range(rounds):
+        warmup = 2 if r == 0 else 0
+        th.append(timeit(host, repeats=1, warmup=warmup, device=device))
+        td.append(timeit(device_fn, repeats=1, warmup=warmup, device=device))
+    return float(np.median(th)), float(np.median(td))
 
 
 def run(*, nodes: int = 5000, avg_degree: float = 10.0, d_feat: int = 64,
@@ -38,10 +56,9 @@ def run(*, nodes: int = 5000, avg_degree: float = 10.0, d_feat: int = 64,
         for wname, pool in workloads.items():
             seeds = pool[:batch].astype(np.int64)
             executors = make_executors(stack, max_batch=batch)
-            t_host = timeit(lambda: executors["host"].process(seeds),
-                            repeats=3, device=dev)
-            t_dev = timeit(lambda: executors["device"].process(seeds),
-                           repeats=3, device=dev)
+            t_host, t_dev = interleaved_times(
+                lambda: executors["host"].process(seeds),
+                lambda: executors["device"].process(seeds), device=dev)
             close_executors(executors)
             # PSGS picks per-batch using the throughput threshold
             thr = float(np.median(psgs)) * batch * 2

@@ -1,9 +1,11 @@
 """Shared cell builders for the five LM architectures, ported from
 ``src/repro/configs/lm_common.py``: the shapes, the sharding rules and
 specs, the dry-run cell (:func:`build_lm_cell`), the smoke reduction
-(:func:`lm_smoke`) and the ``train_4k`` cell's step (:func:`train_step`);
-and, the port's own, where a served LM lives on a mesh of cards
-(:func:`serve_placement`).
+(:func:`lm_smoke`) and the ``train_4k`` cell's step (:func:`train_step`,
+on one device or, for a dense arch, over a ``("data", "model")`` mesh by
+the reference's ZeRO-1 rule, :func:`train_rules`); and, the port's own,
+where a served LM lives on a mesh of cards (:func:`serve_placement`) and
+where a trained one does (:func:`train_placement`).
 
 Shapes (per assignment):
   train_4k    — train_step,  seq 4096,   global_batch 256
@@ -20,6 +22,7 @@ dimension to the data axes since batch=1.
 from __future__ import annotations
 
 import dataclasses
+import math
 from functools import partial
 from typing import Optional
 
@@ -30,11 +33,13 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import Arch, CellSpec
 from repro_torch.launch.mesh import ProductionMesh
 from repro_torch.models.moe import EXPERT_WEIGHTS, expert_ranges
-from repro_torch.models.transformer import (CACHE_DTYPE, LM, LMConfig,
+from repro_torch.models.tensor_parallel import group_loss
+from repro_torch.models.transformer import (CACHE_DTYPE, KV_CHUNK, LM,
+                                            LMConfig, LOSS_CHUNK, Q_CHUNK,
                                             init_decode_cache,
                                             lm_decode_step, lm_init, lm_loss,
-                                            lm_prefill)
-from repro_torch.sharding import Rules, spec, tree_shardings
+                                            lm_prefill, param_blocks)
+from repro_torch.sharding import Rules, block_slices, spec, tree_shardings
 from repro_torch.training.loop import StageTimer
 from repro_torch.training.optimizer import AdamW, AdamWState
 
@@ -89,7 +94,14 @@ def train_step(model: LM, opt: AdamW, opt_state: AdamWState, batch: dict,
     ``q_chunk``/``kv_chunk`` of ``lm_loss`` (its defaults when None).
     With ``timer``, the stages ``forward``, ``backward`` (summed over
     micro-batches) and ``optimizer`` are timed. The gradients are released
-    after the update. Returns the new state and the loss."""
+    after the update. Returns the new state and the loss.
+
+    A tensor-parallel ``model`` (on a train mesh, :class:`LM`) takes the
+    mesh's step, :func:`_mesh_step`, with its ``opt_state`` from
+    ``opt.init(zero1_params(model))``."""
+    if model.tensor_parallel:
+        return _mesh_step(model, opt, opt_state, batch, cfg, micro=micro,
+                          chunks=chunks, timer=timer)
     tokens, targets = batch["tokens"], batch["targets"]
     b = tokens.shape[0]
     if micro < 1 or b % micro:
@@ -122,6 +134,206 @@ def train_step(model: LM, opt: AdamW, opt_state: AdamWState, batch: dict,
         p.grad = None
     if timer:
         timer.lap("optimizer")
+    return opt_state, loss
+
+
+# ---------------------------------------------------------------------------
+# the train_4k step over a ("data", "model") mesh (dense archs, ZeRO-1)
+# ---------------------------------------------------------------------------
+def train_rules(mesh, cfg: LMConfig) -> Rules:
+    """The rules the ``train_4k`` cell lays its weights out by
+    (``src/repro/configs/lm_common.py:147-156``): for a dense arch the
+    reference's ZeRO-1, ``lm_rules`` with ``"fsdp"`` rebound to None, so
+    the weights split over ``"model"`` (``"tp"``, ``"tp_kv"``,
+    ``"vocab_tp"``) and are replicated over the data axes; an MoE keeps
+    full FSDP, ``lm_rules`` itself. The optimizer state always takes
+    ``lm_rules(mesh, "train_4k", cfg)``."""
+    rules = lm_rules(mesh, "train_4k", cfg)
+    if cfg.moe is not None:
+        return rules
+    return Rules({**rules.table, "fsdp": None})
+
+
+@dataclasses.dataclass(frozen=True)
+class Zero1Layout:
+    """Where each shard's state of a tensor-parallel LM lies.
+
+    Attributes:
+        shapes: each parameter's whole shape, by name.
+        weight: each shard's block of each weight (the model's, under
+            :func:`train_rules`).
+        state: each shard's block of each weight's AdamW state (under
+            ``lm_rules(mesh, "train_4k", cfg)``: FSDP over the data axes,
+            TP over ``"model"``), inside its weight block.
+        holders: for each weight and shard, the shards that hold the same
+            weight block, in shard order (its data replicas, and every
+            shard for a weight replicated over ``"model"``).
+        owners: for each weight, the first shard of each distinct state
+            block, in shard order.
+    """
+
+    shapes: dict
+    weight: dict
+    state: dict
+    holders: dict
+    owners: dict
+
+    def view(self, model: LM, shard: int, name: str,
+             of: Optional[int] = None) -> torch.Tensor:
+        """Shard ``shard``'s weight ``name`` at shard ``of``'s state block
+        (its own by default): a view into the weight."""
+        of = shard if of is None else of
+        w = model.shards[shard].get_parameter(name)
+        return w[block_slices(self.state[name][of],
+                              self.weight[name][shard])]
+
+
+def zero1_layout(model: LM) -> Zero1Layout:
+    """The :class:`Zero1Layout` of a tensor-parallel ``model``."""
+    mesh, cfg = model.mesh, model.cfg
+    state = param_blocks(cfg, mesh, lm_rules(mesh, "train_4k", cfg))
+    weight = {n: b for n, (_, b) in model.blocks.items()}
+    holders, owners = {}, {}
+    for name, blocks in weight.items():
+        holders[name] = [tuple(j for j, b in enumerate(blocks) if b == mine)
+                         for mine in blocks]
+        seen = {}
+        for i, b in enumerate(state[name][1]):
+            seen.setdefault(b, i)
+        owners[name] = tuple(seen.values())
+    return Zero1Layout({n: s for n, (s, _) in model.blocks.items()}, weight,
+                       {n: b for n, (_, b) in state.items()}, holders,
+                       owners)
+
+
+def zero1_params(model: LM, layout: Optional[Zero1Layout] = None) -> dict:
+    """``{(shard, name): view}``: each shard's weights at its state blocks,
+    the tensors that ``AdamW.init`` and ``AdamW.update`` take on a
+    mesh."""
+    layout = layout or zero1_layout(model)
+    return {(i, name): layout.view(model, i, name)
+            for i in range(model.mesh.world) for name in layout.shapes}
+
+
+def gathered_opt_state(model: LM, state: AdamWState,
+                       device: str | torch.device = "cpu") -> dict:
+    """``{"mu": {name: whole}, "nu": {...}}``: a tensor-parallel
+    ``model``'s AdamW state assembled from its shards' blocks, under the
+    names of an :class:`LM` without a mesh."""
+    layout = zero1_layout(model)
+    out = {}
+    for key, tree in (("mu", state.mu), ("nu", state.nu)):
+        out[key] = {}
+        for name, shape in layout.shapes.items():
+            full = torch.empty(shape, dtype=torch.float32, device=device)
+            for i in layout.owners[name]:
+                full[block_slices(layout.state[name][i])].copy_(
+                    tree[(i, name)])
+            out[key][name] = full
+    return out
+
+
+def _mesh_step(model: LM, opt: AdamW, opt_state: AdamWState, batch: dict,
+               cfg: LMConfig, *, micro: int, chunks: Optional[dict],
+               timer: Optional[StageTimer]
+               ) -> tuple[AdamWState, torch.Tensor]:
+    """:func:`train_step` on a tensor-parallel ``model``, in the
+    reference's order:
+
+    1. micro-batch i is rows ``[i·B/micro, (i+1)·B/micro)`` of the batch,
+       split over ``"data"`` by the ``"batch"`` spec: data group g takes
+       its ``B/micro/D`` rows, runs its forward
+       (:func:`~repro_torch.models.tensor_parallel.group_loss`, over the
+       micro-batch's positions) and, the groups together, its backward;
+       each shard's gradients add up in its ``.grad``;
+    2. ``data_sum``: each shard's block of each weight's state takes the
+       sum of that block's gradient over every shard holding the weight
+       block, in shard order, divided by ``micro`` (when above 1) — the
+       reduce over ``"data"``, and over ``"model"`` for a weight
+       replicated there, each shard its own part;
+    3. ``optimizer``: ``AdamW.update`` on those blocks (ZeRO-1: each shard
+       its state block with its own mu and nu), the clipping norm over
+       each distinct block once;
+    4. ``gather``: each shard copies the updated blocks of its weight's
+       other parts from their owners, so every replica holds the same
+       bits.
+
+    The loss is the mean over micro-batches of the groups' losses summed
+    in shard order."""
+    mesh = model.mesh
+    data = mesh.world // len(model.groups[0])
+    tokens, targets = batch["tokens"], batch["targets"]
+    b, s = tokens.shape
+    if micro < 1 or b % micro:
+        raise ValueError(f"batch {b} does not split into {micro} "
+                         "micro-batches")
+    mb = b // micro
+    if mb % data:
+        raise ValueError(f"a micro-batch of {mb} rows does not split over "
+                         f"a data axis of {data}")
+    rows = mb // data
+    layout = zero1_layout(model)
+    shard_params = [dict(sh.named_parameters()) for sh in model.shards]
+    for params in shard_params:
+        for p in params.values():
+            p.grad = None if micro == 1 else torch.zeros_like(p)
+    chunks = {"q_chunk": Q_CHUNK, "kv_chunk": KV_CHUNK, **(chunks or {})}
+    home = mesh.devices[0]
+    losses = []
+    if timer:
+        timer.start()
+    for i in range(micro):
+        group_losses = []
+        for g, group in enumerate(model.groups):
+            dev = mesh.devices[group[0]]
+            lo = i * mb + g * rows
+            group_losses.append(group_loss(
+                model, g, tokens[lo:lo + rows].to(dev),
+                targets[lo:lo + rows].to(dev), cfg, count=mb * s,
+                chunk=LOSS_CHUNK, **chunks))
+        if timer:
+            timer.lap("forward")
+        torch.autograd.backward(group_losses)
+        if timer:
+            timer.lap("backward")
+        loss = group_losses[0].detach().to(home)
+        for part in group_losses[1:]:
+            loss = loss + part.detach().to(home)
+        losses.append(loss)
+    grads = {}
+    for name in layout.shapes:
+        for i in range(mesh.world):
+            region = block_slices(layout.state[name][i],
+                                  layout.weight[name][i])
+            dev = mesh.devices[i]
+            total = None
+            for j in layout.holders[name][i]:
+                part = shard_params[j][name].grad[region].to(dev)
+                total = part if total is None else total + part
+            grads[(i, name)] = total / micro if micro > 1 else total
+        for j in range(mesh.world):
+            shard_params[j][name].grad = None
+    if timer:
+        timer.lap("data_sum")
+    params = zero1_params(model, layout)
+    norm_keys = [(i, name) for name in layout.shapes
+                 for i in layout.owners[name]]
+    _, opt_state = opt.update(grads, opt_state, params, norm_keys=norm_keys)
+    del grads
+    if timer:
+        timer.lap("optimizer")
+    with torch.no_grad():
+        for name in layout.shapes:
+            for i in range(mesh.world):
+                mine = layout.state[name][i]
+                for o in layout.owners[name]:
+                    if o in layout.holders[name][i] \
+                            and layout.state[name][o] != mine:
+                        layout.view(model, i, name, of=o).copy_(
+                            layout.view(model, o, name))
+    if timer:
+        timer.lap("gather")
+    loss = losses[0] if micro == 1 else torch.stack(losses).mean()
     return opt_state, loss
 
 
@@ -289,6 +501,64 @@ def lm_param_spec_of(name: str, specs: dict) -> tuple:
     return specs[parts[0]]
 
 
+@dataclasses.dataclass(frozen=True)
+class TrainPlacement:
+    """Where the ``train_4k`` cell's fp32 state lives on a ``("data",
+    "model")`` mesh of ``world`` shards, shard ``i`` on card ``i %
+    cards``.
+
+    Attributes:
+        weight_bytes: each shard's weights under :func:`train_rules`; its
+            gradients take as many.
+        state_bytes: each shard's AdamW mu and nu under ``lm_rules(mesh,
+            "train_4k", cfg)``.
+        shard_cards: each shard's card.
+    """
+
+    weight_bytes: tuple
+    state_bytes: tuple
+    shard_cards: tuple
+
+    @property
+    def shard_bytes(self) -> tuple:
+        """Each shard's weights, gradients, mu and nu."""
+        return tuple(2 * w + st for w, st in zip(self.weight_bytes,
+                                                 self.state_bytes))
+
+    @property
+    def card_bytes(self) -> tuple:
+        """Each card's shards' bytes."""
+        out = [0] * (max(self.shard_cards) + 1)
+        for card, b in zip(self.shard_cards, self.shard_bytes):
+            out[card] += b
+        return tuple(out)
+
+
+def train_placement(cfg: LMConfig, mesh, *, cards: Optional[int] = None
+                    ) -> TrainPlacement:
+    """The :class:`TrainPlacement` of ``cfg``'s ``train_4k`` cell on
+    ``mesh`` (its shape only: a :class:`~repro_torch.launch.mesh.
+    ProductionMesh` will do) over ``min(cards, world)`` cards (one a shard
+    by default). Counts the fp32 bytes of every parameter an :class:`LM`
+    allocates (on the ``meta`` device: nothing is allocated; the QKV
+    biases and qk-norm gains included, which ``lm_param_count`` leaves
+    out) in each shard's block under the same weight and state specs the
+    dry-run's cell takes (:func:`build_lm_cell`) and the runtime lays
+    out (:func:`zero1_layout`)."""
+    world = math.prod(int(v) for v in mesh.shape.values())
+    cards = world if cards is None else min(cards, world)
+    weight, state = [0] * world, [0] * world
+    for per_shard, blocks in ((weight, param_blocks(cfg, mesh,
+                                                    train_rules(mesh, cfg))),
+                              (state, param_blocks(cfg, mesh, lm_rules(
+                                  mesh, "train_4k", cfg)))):
+        for _, shard_blocks in blocks.values():
+            for i, block in enumerate(shard_blocks):
+                per_shard[i] += 4 * math.prod(hi - lo for lo, hi in block)
+    return TrainPlacement(tuple(weight), tuple(2 * b for b in state),
+                          tuple(i % cards for i in range(world)))
+
+
 def _named_shardings(model: LM, mesh, specs: dict) -> Optional[dict]:
     if mesh is None:
         return None
@@ -330,10 +600,8 @@ def build_lm_cell(cfg: LMConfig, shape: str, mesh, *,
     if info["kind"] == "train":
         opt = train_optimizer()
         micro = train_micro(cfg, B, mesh)
-        wspecs = pspecs
-        if cfg.moe is None:   # ZeRO-1: weights replicated over dp
-            wspecs = lm_param_specs(cfg, mesh,
-                                    Rules({**rules.table, "fsdp": None}))
+        # ZeRO-1 for a dense arch: weights replicated over dp
+        wspecs = lm_param_specs(cfg, mesh, train_rules(mesh, cfg))
         with mode:
             model = LM(cfg, dtype=torch.float32, device=dev)
             params = dict(model.named_parameters())

@@ -6,7 +6,8 @@ default, or ``--shape train_4k`` training.
         [--seed 0] [--smoke] [--device cuda|cpu]
     PYTHONPATH=src python -m repro_torch.launch.lm --shape train_4k \\
         [--arch qwen3-4b] [--steps 3 --batch 1 --micro M] [--seed 0] \\
-        [--smoke] [--device cuda|cpu]
+        [--mesh-world W [--model M]] [--layers N] [--smoke] \\
+        [--device cuda|cpu]
 
 The port's counterpart of the serve cells that the reference lowers in
 ``launch/dryrun.py`` (``configs/lm_common.py``: ``prefill_32k`` and
@@ -60,14 +61,36 @@ tokens and targets are drawn uniformly from the same generator. Cuts:
 the batch 256 → ``--batch`` (default 1), split into ``--micro``
 micro-batches (default ``--batch``: one sequence each). The report holds
 the losses (step 0 about ln V + 0.5: unit-variance logits at init), step
-ms and their stages (forward, backward, optimizer) and peak device
-memory. An arch whose fp32 train state (16 bytes a parameter: weights,
-gradients, mu, nu) exceeds one card exits with status 2 unless
-``--smoke`` (codeqwen1.5-7b 131.0 GB, deepseek-moe-16b 270.1 GB,
-phi3.5-moe-42b 670.0 GB): dense training beyond one card needs the
-sharded training of ROADMAP A10b; MoE training needs more than four cards
-(ROADMAP A13's rest: the state sharded four ways is still 67.5 and 167.5
-GB a card). Training takes no ``--mesh-world``.
+ms and their stages (forward, backward, optimizer), each card's planned
+and allocated bytes and peak.
+
+With ``--mesh-world W`` (and ``--model M``, default W) a dense arch
+trains over a ``("data", "model")`` mesh of ``(W / M, M)`` shards, one a
+card (round-robin where W exceeds the cards; every shard on the CPU
+there), by the reference's rule (``lm_common.train_rules``): ZeRO-1 only
+rebinds ``"fsdp"``, so the weights split over ``"model"`` — head-parallel
+attention, column- and row-parallel FFN, vocab-parallel embedding and
+cross entropy (``models/tensor_parallel.py``) — and are replicated over
+``"data"``, AdamW's mu and nu keep FSDP over ``"data"`` and TP over
+``"model"``, and the batch splits over ``"data"``. ``--batch`` then
+defaults to the smallest batch whose micro-batches split over
+``"data"``, and ``--micro`` to the reference's ``train_micro`` (4 when
+the batch splits in 4); a micro-batch that does not split over
+``"data"`` exits with status 2. The stages add ``data_sum`` (each
+shard's state block's gradient summed over the shards holding its weight
+block) and ``gather`` (the updated blocks copied to every replica), and
+the report each shard's planned and held bytes of weights and of mu and
+nu.
+
+Before anything is drawn, unless ``--smoke``, the launcher checks each
+card's fp32 weights, gradients, mu and nu (``lm_common.train_placement``)
+against one 80 GB card and exits with status 2 where one is over, naming
+the smallest ``--model`` that fits: codeqwen1.5-7b holds 131.0 GB at
+world 1, and 32.76 / 49.14 / 81.90 GB a card on four cards at ``--model``
+4 / 2 / 1, so it trains on four cards at ``--model`` 4 or 2 (ROADMAP
+A10b). MoE archs keep the reference's full FSDP, which is not ported:
+deepseek-moe-16b (270.1 GB) and phi3.5-moe-42b (670.0 GB) exit 2 at
+world 1, and with ``--mesh-world`` (ROADMAP A13's rest).
 """
 from __future__ import annotations
 
@@ -83,7 +106,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import LM_ARCHS, lm_common
 from repro_torch.configs.lm_common import SHAPES, smoke_config
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import ProductionMesh, make_host_mesh
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.transformer import (LM, LMConfig, init_decode_cache,
                                             lm_active_param_count,
@@ -108,11 +131,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="prefill_32k: serve (prefill, then decode); "
                         "train_4k: train")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    p.add_argument("--batch", type=int, default=1)
+    p.add_argument("--batch", type=int, default=None,
+                   help="sequences a request or a step (default 1; on a "
+                        "train mesh the smallest whose micro-batches "
+                        "split over the data axis)")
     p.add_argument("--steps", type=int, default=3,
                    help="train_4k: optimizer steps")
     p.add_argument("--micro", type=int, default=None,
-                   help="train_4k: micro-batches a step (default --batch)")
+                   help="train_4k: micro-batches a step (default --batch; "
+                        "on a mesh the reference's train_micro)")
     p.add_argument("--prompt-len", type=int, default=32768)
     p.add_argument("--new-tokens", type=int, default=16)
     p.add_argument("--requests", type=int, default=1)
@@ -120,7 +147,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--layers", type=int, default=None,
                    help="cut the depth to the first N layers")
     p.add_argument("--mesh-world", type=int, default=1,
-                   help="serve: shards of an MoE's experts (one a card)")
+                   help="serve: shards of an MoE's experts; train_4k: "
+                        "shards of a dense LM's (data, model) mesh (one a "
+                        "card)")
+    p.add_argument("--model", type=int, default=None,
+                   help="train_4k: the mesh's model axis (default "
+                        "--mesh-world: tensor-parallel only)")
     p.add_argument("--smoke", action="store_true")
     args = p.parse_args(argv)
     if args.arch not in LM_ARCHS:
@@ -129,29 +161,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     if args.layers is not None and not 1 <= args.layers <= _depth(args):
         p.exit(2, f"repro_torch.launch.lm: --layers {args.layers} outside "
                   f"1..{_depth(args)}\n")
-    n = lm_param_count(cfg)
     if args.shape == "train_4k":
-        state = n * TRAIN_STATE_BYTES
-        where = (f"more than {TRAIN_CARDS} cards: sharded over "
-                 f"{TRAIN_CARDS} its state is still "
-                 f"{state / TRAIN_CARDS / 1e9:.1f} GB a card (ROADMAP A13, "
-                 "MoE train_4k)" if cfg.moe is not None
-                 else "the sharded training of ROADMAP A10b")
-        if args.mesh_world != 1:
-            p.exit(2, "repro_torch.launch.lm: --mesh-world serves only; "
-                      "training runs on one card\n")
-        if not args.smoke and state > CARD_BYTES:
-            p.exit(2, f"repro_torch.launch.lm: --arch {args.arch} has "
-                      f"{n:,} parameters, {state / 1e9:.1f} GB of fp32 "
-                      "train state (weights, gradients, mu, nu) against "
-                      f"one {CARD_BYTES / 1e9:.0f} GB card: training it "
-                      f"needs {where}\n")
-        if args.micro is None:
-            args.micro = args.batch
-        if args.micro < 1 or args.batch % args.micro:
-            p.exit(2, f"repro_torch.launch.lm: --batch {args.batch} does "
-                      f"not split into --micro {args.micro} micro-batches\n")
+        refusal = train_refusal(args, cfg)
+        if refusal:
+            p.exit(2, f"repro_torch.launch.lm: {refusal}\n")
         return args
+    if args.model is not None:
+        p.exit(2, "repro_torch.launch.lm: --model shapes a train_4k mesh\n")
+    if args.batch is None:
+        args.batch = 1
     if args.mesh_world < 1:
         p.exit(2, f"repro_torch.launch.lm: --mesh-world {args.mesh_world} "
                   "below 1\n")
@@ -163,6 +181,99 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         if refusal:
             p.exit(2, f"repro_torch.launch.lm: {refusal}\n")
     return args
+
+
+def train_mesh_shape(world: int, model: int) -> ProductionMesh:
+    """The ``("data", "model")`` shape of a train mesh of ``world`` shards
+    with a model axis of ``model`` (``(1, 1)`` at world 1: one card, no
+    mesh)."""
+    return ProductionMesh(("data", "model"), (world // model, model))
+
+
+def _fits(cfg: LMConfig, world: int, model: int,
+          cards: Optional[int]) -> bool:
+    place = lm_common.train_placement(cfg, train_mesh_shape(world, model),
+                                      cards=cards)
+    return max(place.card_bytes) <= CARD_BYTES
+
+
+def train_refusal(args: argparse.Namespace, cfg: LMConfig
+                  ) -> Optional[str]:
+    """Settle ``--model``, ``--batch`` and ``--micro`` of a ``train_4k``
+    run (module docstring) in ``args``; returns why it cannot run, or
+    None. The memory check (skipped with ``--smoke``) is per card:
+    ``lm_common.train_placement``'s fp32 weights, gradients, mu and nu on
+    each card of ``--mesh-world`` shards (one a card, or round-robin over
+    this host's cards), against one 80 GB card."""
+    world = args.mesh_world
+    if cfg.moe is not None:
+        if world != 1 or args.model is not None:
+            return ("--mesh-world serves only, for an MoE arch: its "
+                    "train_4k over a mesh of cards is ROADMAP A13's rest")
+        state = lm_param_count(cfg) * TRAIN_STATE_BYTES
+        if not args.smoke and state > CARD_BYTES:
+            return (f"--arch {args.arch} has {lm_param_count(cfg):,} "
+                    f"parameters, {state / 1e9:.1f} GB of fp32 train state "
+                    "(weights, gradients, mu, nu) against one "
+                    f"{CARD_BYTES / 1e9:.0f} GB card: training it needs "
+                    "the reference's full FSDP over a mesh of cards, not "
+                    f"ported ({state / TRAIN_CARDS / 1e9:.1f} GB a card "
+                    f"over {TRAIN_CARDS} before activations; ROADMAP A13, "
+                    "MoE train_4k)")
+    model = world if args.model is None else args.model
+    if world < 1 or model < 1 or world % model:
+        return (f"--model {model} does not divide --mesh-world {world} "
+                "shards")
+    args.model = model
+    mesh = train_mesh_shape(world, model)
+    data = world // model
+    if args.batch is None:
+        args.batch = next(b for b in range(data, 1 << 20, data)
+                          if world == 1 or (b // lm_common.train_micro(
+                              cfg, b, mesh)) % data == 0)
+    if args.micro is None:
+        args.micro = (args.batch if world == 1
+                      else lm_common.train_micro(cfg, args.batch, mesh))
+    if args.micro < 1 or args.batch % args.micro:
+        return (f"--batch {args.batch} does not split into --micro "
+                f"{args.micro} micro-batches")
+    if (args.batch // args.micro) % data:
+        return (f"a micro-batch of {args.batch // args.micro} sequences "
+                f"does not split over the data axis of {data}")
+    if args.smoke or cfg.moe is not None:
+        return None
+    cards = _cards(args)
+    place = lm_common.train_placement(cfg, mesh, cards=cards)
+    over = [c for c, b in enumerate(place.card_bytes) if b > CARD_BYTES]
+    if not over:
+        return None
+    if world == 1:
+        fits = next((w for w in (2, 4, 8, 16) if _fits(cfg, w, w, None)),
+                    None)
+        n = place.weight_bytes[0] // 4
+        return (f"--arch {args.arch} has {n:,} parameters, "
+                f"{place.card_bytes[0] / 1e9:.1f} GB of fp32 train state "
+                "(weights, gradients, mu, nu) against one "
+                f"{CARD_BYTES / 1e9:.0f} GB card: training it needs its "
+                "weights split over a mesh of cards by the reference's "
+                "rule, tensor-parallel over the model axis with ZeRO-1 "
+                "state (ROADMAP A10b; the smallest that fits, one shard a "
+                f"card, is --mesh-world {fits})")
+    c = over[0]
+    shards = [i for i, card in enumerate(place.shard_cards) if card == c]
+    weights = sum(2 * place.weight_bytes[i] for i in shards)
+    state = sum(place.state_bytes[i] for i in shards)
+    fits = next((m for m in range(1, world + 1)
+                 if world % m == 0 and _fits(cfg, world, m, cards)), None)
+    smallest = (f"the smallest --model that fits is {fits}" if fits
+                else f"no --model fits --mesh-world {world} over "
+                     f"{cards or world} card(s)")
+    return (f"--arch {args.arch} at --mesh-world {world} --model {model} "
+            f"over {cards or world} card(s): card {c} would hold "
+            f"{place.card_bytes[c] / 1e9:.2f} GB of fp32 train state "
+            f"({weights / 1e9:.2f} GB of weights and gradients, "
+            f"{state / 1e9:.2f} GB of mu and nu) against "
+            f"{CARD_BYTES / 1e9:.0f} GB; {smallest}")
 
 
 def config_of(args: argparse.Namespace) -> LMConfig:
@@ -364,6 +475,12 @@ def train_cell(args: argparse.Namespace
     ``(model, seq, draw() -> batch, step(batch, timer) -> loss)``,
     ``step`` one ``configs/lm_common.py::train_step`` that keeps the
     optimizer state between calls."""
+    return _train_cell(args)[:4]
+
+
+def _train_cell(args: argparse.Namespace) -> tuple:
+    """:func:`train_cell` and, last, a one-item list holding the
+    optimizer state."""
     dev = resolve_device(args.device)
     cfg = config_of(args)
     seq = SHAPES["train_4k"]["seq"]
@@ -371,9 +488,14 @@ def train_cell(args: argparse.Namespace
     if args.smoke:
         seq, chunks = SMOKE_TRAIN_SEQ, lm_common.SMOKE_CHUNKS
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    model = lm_init(gen, cfg)                        # fp32 weights
+    mesh = rules = None
+    if args.mesh_world > 1:
+        mesh = make_host_mesh(args.mesh_world, model=args.model, device=dev)
+        rules = lm_common.train_rules(mesh, cfg)
+    model = lm_init(gen, cfg, mesh=mesh, rules=rules)    # fp32 weights
     opt = lm_common.train_optimizer()
-    state = [opt.init(dict(model.named_parameters()))]
+    state = [opt.init(lm_common.zero1_params(model) if mesh is not None
+                      else dict(model.named_parameters()))]
 
     def draw() -> dict[str, torch.Tensor]:
         toks = torch.randint(0, cfg.vocab, (2, args.batch, seq),
@@ -386,29 +508,85 @@ def train_cell(args: argparse.Namespace
             model, opt, state[0], batch, cfg, micro=args.micro,
             chunks=chunks, timer=timer)
         return loss
-    return model, seq, draw, step
+    return model, seq, draw, step, state
 
 
-def train(args: argparse.Namespace) -> dict:
-    """``args.steps`` steps of :func:`train_cell`; returns the report."""
-    dev = resolve_device(args.device)
-    model, seq, draw, step = train_cell(args)
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
+def train_devices(model: LM) -> list[torch.device]:
+    """The distinct devices ``model`` lives on, in shard order."""
+    if model.mesh is None:
+        return [next(model.parameters()).device]
+    return [dev for dev, _ in model.mesh.groups()]
+
+
+def _shard_bytes(model: LM, state) -> tuple[list, list]:
+    """Each shard's bytes of weights and of AdamW mu and nu, as held."""
+    if model.mesh is None:
+        return ([sum(p.numel() * p.element_size()
+                     for p in model.parameters())],
+                [sum(t.numel() * t.element_size()
+                     for tree in (state.mu, state.nu)
+                     for t in tree.values())])
+    weights = [sum(p.numel() * p.element_size() for p in sh.parameters())
+               for sh in model.shards]
+    held = [0] * model.mesh.world
+    for tree in (state.mu, state.nu):
+        for (i, _), t in tree.items():
+            held[i] += t.numel() * t.element_size()
+    return weights, held
+
+
+def train(args: argparse.Namespace, *, keep: Optional[dict] = None
+          ) -> dict:
+    """``args.steps`` steps of :func:`train_cell`; returns the report. On
+    a mesh the report adds each shard's planned and held bytes and each
+    card's planned bytes (``lm_common.train_placement``), bytes after the
+    draw and peak; the stages add ``data_sum`` and ``gather``. ``keep``,
+    when given, receives the model and the optimizer state after the last
+    step (``"model"``, ``"opt_state"``)."""
+    model, seq, draw, step, state = _train_cell(args)
+    cfg = model.cfg
+    devices = train_devices(model)
+    place = lm_common.train_placement(
+        cfg, train_mesh_shape(args.mesh_world, args.model),
+        cards=len(devices))
+    weights, held = _shard_bytes(model, state[0])
+    shards = model.mesh.groups() if model.mesh is not None else [
+        (devices[0], (0,))]
+    cards = [{"device": str(dev), "shards": list(ids),
+              "planned_bytes": place.card_bytes[c],
+              "bytes": (torch.cuda.memory_allocated(dev)
+                        if dev.type == "cuda" else None)}
+             for c, (dev, ids) in enumerate(shards)]
+    for dev in devices:
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
     losses, stages = [], []
     for _ in range(args.steps):
         batch = draw()
-        timer = StageTimer(dev)
+        timer = StageTimer(devices)
         losses.append(float(step(batch, timer)))
         stages.append(timer.ms)
+    for card, dev in zip(cards, devices):
+        card["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                              if dev.type == "cuda" else None)
+    if keep is not None:
+        keep.update(model=model, opt_state=state[0])
     return {"arch": args.arch, "smoke": args.smoke, "shape": args.shape,
-            "device": str(dev), "params": lm_param_count(model.cfg),
+            "device": str(devices[0]), "params": lm_param_count(cfg),
+            "param_elements": sum(p.numel() for p in LM(
+                cfg, device="meta").parameters()),
+            "layers": cfg.n_layers, "mesh_world": args.mesh_world,
+            "model": args.model, "data": args.mesh_world // args.model,
             "batch": args.batch, "micro": args.micro, "seq": seq,
-            "steps": args.steps, "dtype": model.cfg.dtype, "losses": losses,
+            "steps": args.steps, "dtype": cfg.dtype, "losses": losses,
             "step_ms": [sum(st.values()) for st in stages],
             "stage_ms": stages,
-            "peak_bytes": (torch.cuda.max_memory_allocated(dev)
-                           if dev.type == "cuda" else None)}
+            "shard_bytes": {"planned_weights": list(place.weight_bytes),
+                            "planned_state": list(place.state_bytes),
+                            "weights": weights, "state": held},
+            "cards": cards,
+            "peak_bytes": (torch.cuda.max_memory_allocated(devices[0])
+                           if devices[0].type == "cuda" else None)}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:

@@ -35,7 +35,10 @@ logits are recomputed in the backward (:class:`ChunkedCrossEntropy`), so
 the full ``(B·S, V)`` fp32 logits and their gradient (7.5 GB at qwen3-4b's
 4,096 positions) are never resident at once. The embedding rows are
 gathered from the fp32 table and then cast (the reference casts the table,
-then gathers: the same values, and the gradient is summed in fp32).
+then gathers: the same values, and the gradient is summed in fp32). A
+dense LM too large for one card trains over a ``("data", "model")`` mesh
+of cards (``LM(mesh=, rules=)``): the same arithmetic tensor-parallel,
+:mod:`repro_torch.models.tensor_parallel`.
 """
 from __future__ import annotations
 
@@ -56,6 +59,8 @@ from repro_torch.models.attention import (apply_rope, blockwise_attention,
 from repro_torch.models.common import RMSNorm, rms_norm
 from repro_torch.models.moe import (MoE, MoEConfig, gather_experts,
                                     init_moe_, load_moe_)
+from repro_torch.models.tensor_parallel import TPShard, tp_plan
+from repro_torch.sharding import block_slices, device_blocks
 
 CACHE_DTYPE = torch.bfloat16  # the reference stores the KV cache in bf16
 # blockwise_attention's chunks in training: the reference LMConfig's
@@ -196,27 +201,97 @@ class LM(nn.Module):
     ``unembed (d, V)``. Parameters are allocated, not initialised: use
     :func:`lm_init` or :func:`lm_from_numpy`.
 
-    With a ``mesh`` (one axis, ``"model"``; :func:`~repro_torch.launch.
-    mesh.make_host_mesh`), each MoE layer's experts are split over it by
-    :func:`serve_rules` and everything else lives on ``device``, the home
-    device, which defaults to ``mesh.devices[0]``."""
+    With a ``mesh`` and no ``rules`` (one axis, ``"model"``;
+    :func:`~repro_torch.launch.mesh.make_host_mesh`), each MoE layer's
+    experts are split over it by :func:`serve_rules` and everything else
+    lives on ``device``, the home device, which defaults to
+    ``mesh.devices[0]``.
+
+    With a ``mesh`` and ``rules`` (a dense LM on a train mesh,
+    ``("data", "model")``; ``lm_common.train_rules``), the LM is
+    tensor-parallel (:mod:`repro_torch.models.tensor_parallel`): shard
+    ``i`` holds, on ``mesh.devices[i]``, its block of every weight under
+    ``lm_param_specs(cfg, mesh, rules)`` (:func:`param_blocks`) as
+    ``shards[i]``, a :class:`~repro_torch.models.tensor_parallel.TPShard`
+    whose parameters carry this class's names. Such an LM trains
+    (``lm_common.train_step``); it does not serve."""
 
     def __init__(self, cfg: LMConfig, *, dtype: torch.dtype = torch.float32,
-                 device=None, mesh=None):
+                 device=None, mesh=None, rules=None):
         super().__init__()
-        rules = None
+        self.cfg = cfg
+        self.mesh = mesh
+        self.tensor_parallel = rules is not None
+        if rules is not None:
+            if mesh is None or cfg.moe is not None:
+                raise ValueError("a tensor-parallel LM is a dense one on a "
+                                 "mesh (MoE training over a mesh is not "
+                                 "ported)")
+            self.blocks = param_blocks(cfg, mesh, rules)
+            self.shards = nn.ModuleList(
+                TPShard({name: tuple(hi - lo for lo, hi in blocks[i])
+                         for name, (_, blocks) in self.blocks.items()},
+                        cfg.n_layers, dtype=dtype, device=dev)
+                for i, dev in enumerate(mesh.devices))
+            self.groups = mesh.axis_groups("model")
+            self.plan = tp_plan(cfg, {n: b for n, (_, b) in
+                                      self.blocks.items()}, self.groups)
+            return
         if mesh is not None:
             rules = serve_rules(mesh, cfg)
             if device is None:
                 device = mesh.devices[0]
-        self.cfg = cfg
-        self.mesh = mesh
         self.embed = _param((cfg.vocab, cfg.d_model), dtype, device)
         self.unembed = _param((cfg.d_model, cfg.vocab), dtype, device)
         self.final_ln = RMSNorm(cfg.d_model, dtype=dtype, device=device)
         self.layers = nn.ModuleList(
             LMBlock(cfg, dtype=dtype, device=device, mesh=mesh, rules=rules)
             for _ in range(cfg.n_layers))
+
+    def group(self, g: int) -> list:
+        """A tensor-parallel LM's data group ``g``: its model shards, in
+        model order."""
+        return [self.shards[i] for i in self.groups[g]]
+
+    def full_like(self, name: str) -> torch.Tensor:
+        """Where a whole parameter ``name`` is written: the parameter
+        itself, or on a train mesh an uninitialised whole tensor on the
+        home device (then :meth:`load_full`)."""
+        if not self.tensor_parallel:
+            return self.get_parameter(name)
+        p = self.shards[0].get_parameter(name)
+        return torch.empty(self.blocks[name][0], dtype=p.dtype,
+                           device=p.device)
+
+    @torch.no_grad()
+    def load_full(self, name: str, full: torch.Tensor) -> None:
+        """Write the whole parameter ``name``: each shard's block of it on a
+        train mesh, else the parameter (nothing when ``full`` is it)."""
+        if not self.tensor_parallel:
+            p = self.get_parameter(name)
+            if full is not p:
+                p.copy_(full)
+            return
+        for sh, block in zip(self.shards, self.blocks[name][1]):
+            sh.get_parameter(name).copy_(full[block_slices(block)])
+
+
+def param_blocks(cfg: LMConfig, mesh, rules) -> dict[str, tuple]:
+    """``{name: (shape, blocks)}`` for every parameter of an :class:`LM`
+    without a mesh (its names, order and shapes, on the ``meta`` device:
+    nothing is allocated): each shard's block of it under the reference's
+    ``lm_param_specs(cfg, mesh, rules)``
+    (:func:`~repro_torch.sharding.device_blocks`). Reads only
+    ``mesh.shape``."""
+    from repro_torch.configs.lm_common import (lm_param_spec_of,
+                                               lm_param_specs)
+    specs = lm_param_specs(cfg, mesh, rules)
+    out = {}
+    for name, p in LM(cfg, device="meta").named_parameters():
+        shape = tuple(p.shape)
+        out[name] = (shape, device_blocks(mesh, lm_param_spec_of(name, specs),
+                                          shape))
+    return out
 
 
 def _home(device, mesh) -> torch.device:
@@ -232,7 +307,8 @@ def _home(device, mesh) -> torch.device:
 
 @torch.no_grad()
 def lm_init(generator: torch.Generator, cfg: LMConfig,
-            dtype: torch.dtype = torch.float32, *, mesh=None) -> LM:
+            dtype: torch.dtype = torch.float32, *, mesh=None,
+            rules=None) -> LM:
     """An :class:`LM` on ``generator``'s device with the reference's
     distributions (``lm_init``): ``embed ~ N(0, 0.02²)``, ``unembed``,
     ``wq/wk/wv/w1/w3 ~ N(0, 1/d)``, ``wo ~ N(0, 1/(H·dh))``, ``w2 ~ N(0,
@@ -242,27 +318,30 @@ def lm_init(generator: torch.Generator, cfg: LMConfig,
     the reference does.
 
     With ``mesh`` (its home device the generator's), each MoE layer's
-    experts are split over it as they are drawn: a layer's whole expert
-    weight exists only while it is handed out, one at a time, and the
-    weights are bit for bit those of ``lm_init`` without a mesh on the
-    same device (:func:`gathered_state_dict`)."""
+    experts are split over it as they are drawn, or with ``rules`` each
+    weight is split into its shards' blocks (:class:`LM`): a whole weight
+    exists only while it is handed out, one at a time, and the weights
+    are bit for bit those of ``lm_init`` without a mesh on the same
+    device (:func:`gathered_state_dict`)."""
     model = LM(cfg, dtype=dtype, device=_home(generator.device, mesh),
-               mesh=mesh)
+               mesh=mesh, rules=rules)
     d, h, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
 
-    def normal(p: torch.Tensor, scale: float) -> None:
+    def normal(name: str, scale: float) -> None:
+        p = model.full_like(name)
         p.normal_(generator=generator).mul_(scale)
+        model.load_full(name, p)
 
-    normal(model.embed, 0.02)
-    normal(model.unembed, 1.0 / math.sqrt(d))
+    normal("embed", 0.02)
+    normal("unembed", 1.0 / math.sqrt(d))
     scales = {"wq": 1.0 / math.sqrt(d), "wk": 1.0 / math.sqrt(d),
               "wv": 1.0 / math.sqrt(d), "wo": 1.0 / math.sqrt(h * dh)}
     if cfg.moe is None:
         scales.update(w1=1.0 / math.sqrt(d), w3=1.0 / math.sqrt(d),
                       w2=1.0 / math.sqrt(cfg.d_ff))
     for name, scale in scales.items():  # one weight kind at a time
-        for blk in model.layers:
-            normal(getattr(blk, name), scale)
+        for i in range(cfg.n_layers):
+            normal(f"layers.{i}.{name}", scale)
     if cfg.moe is not None:
         for blk in model.layers:
             init_moe_(blk.moe, generator)
@@ -277,39 +356,41 @@ def lm_init(generator: torch.Generator, cfg: LMConfig,
 @torch.no_grad()
 def lm_from_numpy(params: dict, cfg: LMConfig, *,
                   dtype: torch.dtype = torch.float32,
-                  device: str | torch.device = "cuda", mesh=None) -> LM:
+                  device: str | torch.device = "cuda", mesh=None,
+                  rules=None) -> LM:
     """The reference's ``lm_init`` dict (``embed``, ``unembed``,
     ``final_ln`` and ``layers`` of stacked ``(L, …)`` arrays, weights
     ``(d_in, d_out)``; with ``cfg.moe``, ``layers["moe"]``'s stacked expert
     arrays, ``shared`` included) → :class:`LM` in ``dtype`` (MoE routers in
     fp32) on ``device`` (the card unless the caller asks for the CPU);
     with ``mesh`` (whose home device is ``device``), its experts split
-    over the mesh."""
+    over the mesh, or with ``rules`` every weight split into its shards'
+    blocks."""
     model = LM(cfg, dtype=dtype, device=_home(resolve_device(device), mesh),
-               mesh=mesh)
+               mesh=mesh, rules=rules)
 
-    def put(p: torch.Tensor, arr) -> None:
-        p.copy_(torch.tensor(np.asarray(arr, dtype=np.float32)))
+    def put(name: str, arr) -> None:
+        model.load_full(name, torch.tensor(np.asarray(arr,
+                                                      dtype=np.float32)))
 
-    put(model.embed, params["embed"])
-    put(model.unembed, params["unembed"])
-    put(model.final_ln.weight, params["final_ln"])
+    put("embed", params["embed"])
+    put("unembed", params["unembed"])
+    put("final_ln.weight", params["final_ln"])
     lay = params["layers"]
-    for i, blk in enumerate(model.layers):
-        for name in ("ln1", "ln2", "q_norm", "k_norm"):
-            if hasattr(blk, name):
-                put(getattr(blk, name).weight, lay[name][i])
-        for name in ("wq", "wk", "wv", "wo", "w1", "w3", "w2", "bq", "bk",
-                     "bv"):
-            if hasattr(blk, name):
-                put(getattr(blk, name), lay[name][i])
+    names = [n for n in ("ln1", "ln2", "q_norm", "k_norm", "wq", "wk", "wv",
+                         "wo", "w1", "w3", "w2", "bq", "bk", "bv") if n in lay]
+    for i in range(cfg.n_layers):
+        for name in names:
+            norm = name in ("ln1", "ln2", "q_norm", "k_norm")
+            put(f"layers.{i}.{name}" + (".weight" if norm else ""),
+                lay[name][i])
         if cfg.moe is not None:
             layer_moe = {k: v[i] for k, v in lay["moe"].items()
                          if k != "shared"}
             if cfg.moe.n_shared:
                 layer_moe["shared"] = {k: v[i] for k, v in
                                        lay["moe"]["shared"].items()}
-            load_moe_(blk.moe, layer_moe)
+            load_moe_(model.layers[i].moe, layer_moe)
     return model
 
 
@@ -318,8 +399,17 @@ def gathered_state_dict(model: LM, device: str | torch.device = "cpu"
     """``model``'s weights on ``device`` under the keys of an :class:`LM`
     without a mesh: each MoE layer's experts gathered back into the
     reference's ``(E, d, ff)`` layout (:func:`~repro_torch.models.moe.
-    gather_experts`). Load it into ``LM(cfg)`` to run the one-card
-    model."""
+    gather_experts`), or on a train mesh each weight assembled from its
+    shards' blocks. Load it into ``LM(cfg)`` to run the one-card model."""
+    if model.tensor_parallel:
+        out = {}
+        for name, (shape, blocks) in model.blocks.items():
+            parts = [sh.get_parameter(name) for sh in model.shards]
+            full = torch.empty(shape, dtype=parts[0].dtype, device=device)
+            for part, block in zip(parts, blocks):
+                full[block_slices(block)].copy_(part.detach())
+            out[name] = full
+        return out
     out = {k: v.detach().to(device) for k, v in model.state_dict().items()
            if ".moe.shards." not in k}
     if model.mesh is not None:

@@ -349,12 +349,18 @@ class ServingGateway:
         return (tier, bias + slack - cfg.aging_gain * wait, item.seq), aged
 
     def drain(self) -> None:
-        """Block until the queue is empty (everything dispatched or shed),
-        then drain the engine — on return every submitted request carries
-        a terminal ``outcome``."""
+        """Block until the queue is empty (everything dispatched or shed)
+        and every dispatched request has completed, then drain the engine —
+        on return every submitted request carries a terminal ``outcome``.
+
+        The gateway's own inflight gauge is waited for, not only the queue:
+        a pump on an executor thread pops a request before it reaches the
+        engine, so an empty queue and an idle engine can both be seen while
+        that request is still on its way."""
         self.pump()
         with self._cv:
-            self._cv.wait_for(lambda: not self._queue)
+            self._cv.wait_for(lambda: not self._queue
+                              and self._gw_inflight == 0)
         self.engine.drain()
 
     # -- telemetry -----------------------------------------------------------

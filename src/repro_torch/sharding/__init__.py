@@ -12,10 +12,14 @@ names, one entry an array dimension (``()`` is replicated). As
 ``PartitionSpec`` does, an entry of one name is that name and an empty
 one is None. The port has no GSPMD:
 the dry-run (:mod:`repro_torch.launch.dryrun`) reads these specs to size
-each device's share of a cell and its collectives, and one runtime lays
-an array out by them: an LM's MoE on a mesh holds each shard's block of
-the expert axis (:func:`block_ranges` of the dispatch buffer's spec;
-:mod:`repro_torch.models.moe`).
+each device's share of a cell and its collectives, and two runtimes lay
+arrays out by them, each device's block given by :func:`device_blocks`
+(the blocks ``NamedSharding.devices_indices_map`` gives in the
+reference): an LM's MoE on a mesh holds each shard's block of the expert
+axis (:func:`block_ranges` of the dispatch buffer's spec;
+:mod:`repro_torch.models.moe`), and a dense LM trained over a ``("data",
+"model")`` mesh holds each device's block of every weight and of its
+optimizer state (:mod:`repro_torch.models.tensor_parallel`).
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ from typing import Any, Optional
 
 __all__ = ["Rules", "NamedSharding", "make_shard_fn", "named", "spec",
            "tree_shardings", "mesh_axis_size", "is_spec", "shard_factor",
-           "spec_entry", "block_ranges"]
+           "spec_entry", "block_ranges", "device_blocks", "block_slices"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,8 +103,71 @@ def make_shard_fn(mesh, rules: Rules):
     on a mesh holds each shard's experts on that shard's device and moves
     the dispatch buffer's rows to them and back
     (:func:`repro_torch.models.moe.moe_experts`), by the ranges that
-    :func:`block_ranges` gives for the constraint's spec."""
+    :func:`block_ranges` gives for the constraint's spec; a dense LM on a
+    train mesh holds each device's :func:`device_blocks` and moves
+    activations between them itself
+    (:mod:`repro_torch.models.tensor_parallel`)."""
     return lambda x, *names: x
+
+
+def _axes(entry) -> tuple:
+    """The mesh axes a spec entry names, major first."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def device_blocks(mesh, s: tuple, shape) -> list[tuple[tuple[int, int], ...]]:
+    """Each shard's block of an array of ``shape`` laid out by spec ``s``
+    on ``mesh``: one ``[lo, hi)`` a dimension, shards in the mesh's
+    row-major order (``mesh.devices.flat`` in the reference).
+
+    A dimension whose entry is None is whole on every shard (replicated);
+    one that names an axis, or a tuple of axes (the first major), is split
+    into equal blocks in the order of those axes' coordinates. Entries
+    past the end of ``s`` are None. These are the blocks that
+    ``NamedSharding(mesh, s).devices_indices_map(shape)`` gives. Reads only
+    ``mesh.shape``.
+
+    Raises:
+        ValueError: an entry names an axis the mesh lacks, or its size
+            does not divide its dimension.
+    """
+    sizes = {a: int(n) for a, n in mesh.shape.items()}
+    entries = tuple(s) + (None,) * (len(shape) - len(s))
+    for entry, dim in zip(entries, shape):
+        axes = _axes(entry)
+        if any(a not in sizes for a in axes):
+            raise ValueError(f"entry {entry!r} names an axis outside "
+                             f"{tuple(sizes)}")
+        if dim % math.prod(sizes[a] for a in axes):
+            raise ValueError(f"entry {entry!r} does not split a dimension "
+                             f"of {dim} over {sizes}")
+    names = tuple(sizes)
+    out = []
+    for shard in range(math.prod(sizes.values())):
+        coord, rest = {}, shard
+        for a in reversed(names):
+            rest, coord[a] = divmod(rest, sizes[a])
+        block = []
+        for entry, dim in zip(entries, shape):
+            idx, ways = 0, 1
+            for a in _axes(entry):
+                idx = idx * sizes[a] + coord[a]
+                ways *= sizes[a]
+            step = dim // ways
+            block.append((idx * step, (idx + 1) * step))
+        out.append(tuple(block))
+    return out
+
+
+def block_slices(block, within=None) -> tuple[slice, ...]:
+    """``block``'s slices, absolute, or relative to the block ``within``
+    that contains it."""
+    if within is None:
+        return tuple(slice(lo, hi) for lo, hi in block)
+    return tuple(slice(lo - wlo, hi - wlo)
+                 for (lo, hi), (wlo, _) in zip(block, within))
 
 
 def block_ranges(mesh, entry, dim: int) -> list[tuple[int, int]]:
@@ -108,10 +175,10 @@ def block_ranges(mesh, entry, dim: int) -> list[tuple[int, int]]:
     ``dim`` whose spec entry is ``entry``, on a one-axis ``mesh``.
 
     A sharded entry splits the dimension into equal blocks in shard order,
-    the layout of a ``NamedSharding`` over one mesh axis. An unsharded one
-    (None, as :func:`spec` leaves an entry whose dimension does not divide
-    its axis) puts the whole dimension on the home shard, shard 0; the
-    others hold an empty range at ``dim``.
+    :func:`device_blocks` over one mesh axis. An unsharded one (None, as
+    :func:`spec` leaves an entry whose dimension does not divide its axis)
+    puts the whole dimension on the home shard, shard 0; the others hold
+    an empty range at ``dim``.
 
     Raises:
         ValueError: ``entry`` names other axes than the mesh's one, or its
@@ -124,8 +191,7 @@ def block_ranges(mesh, entry, dim: int) -> list[tuple[int, int]]:
     if ways != world or dim % ways:
         raise ValueError(f"entry {entry!r} of a dimension of {dim} does "
                          f"not split it over a one-axis mesh of {world}")
-    step = dim // ways
-    return [(i * step, (i + 1) * step) for i in range(world)]
+    return [b[0] for b in device_blocks(mesh, (entry,), (dim,))]
 
 
 def named(mesh, s: tuple) -> Optional[NamedSharding]:

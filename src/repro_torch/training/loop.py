@@ -14,7 +14,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
@@ -25,18 +25,22 @@ from repro_torch.training.optimizer import AdamW, AdamWState
 
 class StageTimer:
     """Milliseconds per named stage of a step on the host clock, each
-    stage ended by a device synchronize (so the device's work is inside
-    it). ``start()`` opens a step; ``lap(name)`` closes the running stage
-    and adds it to ``ms[name]``."""
+    stage ended by a synchronize of every device given (so their work is
+    inside it). ``start()`` opens a step; ``lap(name)`` closes the running
+    stage and adds it to ``ms[name]``."""
 
-    def __init__(self, device: torch.device):
-        self.device = torch.device(device)
+    def __init__(self, device: torch.device | Sequence[torch.device]):
+        devices = ([device] if isinstance(device, (str, torch.device))
+                   else list(device))
+        self.devices = [torch.device(d) for d in devices]
+        self.device = self.devices[0]
         self.ms: dict[str, float] = {}
         self._t = 0.0
 
     def _now(self) -> float:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in self.devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         return time.perf_counter()
 
     def start(self) -> None:

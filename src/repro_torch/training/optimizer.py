@@ -22,6 +22,11 @@ update. A caller that keeps a state across an update sees it change
 (``CheckpointManager.save`` copies the leaves to the host before it
 returns).
 
+On a mesh the same update runs on each shard's blocks (``update``'s
+``(shard, name)`` keys, :func:`repro_torch.configs.lm_common.train_step`):
+the ZeRO-1 step of the reference's dense ``train_4k`` cell, each shard
+updating its block of the FSDP layout with its own mu and nu.
+
 The int8 error-feedback gradient compression (:func:`compress_int8`,
 :func:`compressed_grad_tree` and their inverses) is the reference's: as
 there, only tests call it; no step does.
@@ -60,24 +65,35 @@ class AdamW:
         return self.lr * min(step / max(self.warmup_steps, 1), 1.0)
 
     @torch.no_grad()
-    def update(self, grads: dict[str, torch.Tensor], state: AdamWState,
-               params: dict[str, torch.Tensor]
-               ) -> tuple[dict[str, torch.Tensor], AdamWState]:
+    def update(self, grads: dict, state: AdamWState, params: dict, *,
+               norm_keys: Optional[Iterable] = None
+               ) -> tuple[dict, AdamWState]:
         """One step. Writes ``params`` and ``state.mu``/``state.nu`` in
         place, tensor by tensor, and returns them with the step count
-        advanced; ``grads`` are read, never written."""
+        advanced; ``grads`` are read, never written.
+
+        The keys are parameter names, or on a mesh ``(shard, name)``: each
+        shard's block of a parameter (a view into its weight), of its
+        gradient and of its state, each on the shard's device. The clipping
+        norm then counts each distinct block once: ``norm_keys`` names
+        those (default: every key), in the order their squares are summed;
+        the one clipping scale is moved to each block's device."""
         step = state.step + 1
         scale = None
         if self.clip_norm is not None:
+            keys = grads if norm_keys is None else norm_keys
             scale = torch.clamp(self.clip_norm
-                                / (global_norm(grads.values()) + 1e-9),
-                                max=1.0)
+                                / (global_norm(grads[k] for k in keys)
+                                   + 1e-9), max=1.0)
         b1, b2 = self.b1, self.b2
         bc1 = 1 - b1 ** step
         bc2 = 1 - b2 ** step
         lr = self.schedule(step)
         for k, p in params.items():
-            g = (grads[k] * scale if scale is not None else grads[k]).float()
+            g = grads[k]
+            if scale is not None:
+                g = g * scale.to(g.device)
+            g = g.float()
             mu, nu = state.mu[k], state.nu[k]
             # m ← b1·m + (1-b1)·g;  v ← b2·v + (1-b2)·g²
             mu.mul_(b1).add_((1 - b1) * g)
@@ -91,9 +107,14 @@ class AdamW:
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """``sqrt(Σ ‖t‖²)`` over all tensors, in fp32."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.float()))
-                          for t in tensors))
+    """``sqrt(Σ ‖t‖²)`` over all tensors, in fp32, summed in their order
+    on the first tensor's device."""
+    total, dev = 0, None
+    for t in tensors:
+        sq = torch.sum(torch.square(t.float()))
+        dev = sq.device if dev is None else dev
+        total = total + sq.to(dev)
+    return torch.sqrt(total)
 
 
 # ---------------------------------------------------------------------------

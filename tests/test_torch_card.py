@@ -1115,3 +1115,67 @@ def test_gather_aggregate_refuses_plans_it_cannot_run_on_card(card, plan):
     with pytest.raises((RuntimeError, ValueError)):
         kernel.gather_aggregate_cuda(tier, tier, hot, hot, hot, plan=plan)
     assert ga_pkg.LAUNCHES.value == before
+
+
+
+def _tp_smoke_run(mesh, steps: int = 2):
+    """codeqwen1.5-7b's smoke reduction, fp32, ``steps`` steps of the
+    ``train_4k`` cell (B 16, 64 positions, micro 4) on ``mesh``:
+    ``(losses, gathered weights, gathered mu, model)``."""
+    from repro_torch.configs import LM_ARCHS, lm_common
+    from repro_torch.models import transformer as tf
+    cfg = lm_common.smoke_config(LM_ARCHS["codeqwen1.5-7b"])
+    home = mesh.devices[0]
+    lm = tf.lm_init(torch.Generator(device=home).manual_seed(0), cfg,
+                    mesh=mesh, rules=lm_common.train_rules(mesh, cfg))
+    opt = lm_common.train_optimizer()
+    state = opt.init(lm_common.zero1_params(lm))
+    gen = torch.Generator(device=home).manual_seed(1)
+    losses = []
+    for _ in range(steps):
+        toks = torch.randint(0, cfg.vocab, (2, 16, 64), generator=gen,
+                             device=home)
+        state, loss = lm_common.train_step(
+            lm, opt, state, {"tokens": toks[0], "targets": toks[1]}, cfg,
+            micro=4, chunks=lm_common.SMOKE_CHUNKS)
+        losses.append(loss.item())
+    return (losses, tf.gathered_state_dict(lm),
+            lm_common.gathered_opt_state(lm, state)["mu"], lm)
+
+
+def _on_card0(model: int):
+    """Four logical shards of a ``(4 // model, model)`` mesh, all on card
+    0."""
+    from repro_torch.launch.mesh import Mesh
+    return Mesh((torch.device("cuda", 0),) * 4, ("data", "model"),
+                (4 // model, model))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", [4, 2])
+def test_tp_train_on_logical_shards_repeats_bitwise(card, model):
+    """Four logical shards on card 0: two runs of the smoke-size step give
+    the same bits (losses, weights, mu), every sum in an order the port
+    fixes."""
+    a, b = _tp_smoke_run(_on_card0(model)), _tp_smoke_run(_on_card0(model))
+    assert a[0] == b[0]
+    for x, y in ((a[1], b[1]), (a[2], b[2])):
+        assert all(torch.equal(x[k], y[k]) for k in x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", [4, 2])
+def test_tp_train_on_four_cards(four_cards, model):
+    """One shard a card against four logical shards on card 0: the same
+    bits (losses, weights, mu), every card's blocks on that card."""
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(4, model=model, device="cuda")
+    assert [d.index for d in mesh.devices] == [0, 1, 2, 3]
+    four = _tp_smoke_run(mesh)
+    for i, sh in enumerate(four[3].shards):
+        assert all(p.device == torch.device("cuda", i)
+                   for p in sh.parameters())
+    one = _tp_smoke_run(_on_card0(model))
+    assert four[0] == one[0]
+    for x, y in ((four[1], one[1]), (four[2], one[2])):
+        assert all(torch.equal(x[k], y[k]) for k in x)

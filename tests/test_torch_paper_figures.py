@@ -235,3 +235,40 @@ def test_serve_throughput_paced_serves_the_same_workload():
                                                   rows[None][name]["dev"])
                 == (rows[400.0][name]["host"], rows[400.0][name]["dev"]))
     assert len(rows[400.0]) == 2 * len(burst)
+
+
+def test_skew_times_both_executors_in_alternation():
+    """``interleaved_times`` warms each executor twice, then alternates one
+    timed call of each for ``rounds`` rounds, and returns each median."""
+    from repro_torch.bench.skew_robustness import interleaved_times
+    calls = []
+    t_host, t_dev = interleaved_times(lambda: calls.append("h"),
+                                      lambda: calls.append("d"),
+                                      rounds=4, device="cpu")
+    assert "".join(calls) == "hhh" + "ddd" + "hd" * 3
+    assert t_host >= 0 and t_dev >= 0
+
+
+def test_skew_timing_trial_reports_the_worst_ratio(monkeypatch):
+    """A steadiness trial reads ``skew_robustness``' rows, names the worst
+    routed time over its limit (``1.5 · best + 1 ms``), counts a failed
+    check as not held, and leaves the module as it found it."""
+    from repro_torch.bench import skew_robustness as skew
+    from repro_torch.bench import skew_timing
+    rows = {"skew/a_b4": (1000.0, 3000.0, 1000.0),  # host routed: 0.4
+            "skew/b_b4": (6000.0, 2000.0, 6000.0)}  # host routed: 1.5
+
+    def fake_run(*, device, nodes):
+        for pair, (host, dev, routed) in rows.items():
+            skew.emit(pair + "_host_us", host)
+            skew.emit(pair + "_device_us", dev)
+            skew.emit(pair + "_psgs_us", routed)
+            assert routed <= 1.5 * min(host, dev) + 1000.0
+    monkeypatch.setattr(skew, "run", fake_run)
+    saved = skew.interleaved_times, skew.emit
+    out = skew_timing.trial("separate", "quiet", device="cpu", nodes=10)
+    assert (skew.interleaved_times, skew.emit) == saved
+    assert out["held"] is False and out["worst_over_limit"] == 1.5
+    del rows["skew/b_b4"]
+    out = skew_timing.trial("interleaved", "quiet", device="cpu", nodes=10)
+    assert out["held"] is True and out["worst_over_limit"] == 0.4

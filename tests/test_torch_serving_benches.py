@@ -17,14 +17,18 @@ modules import, and ``gateway_soak``'s two interactive p99s (the only
 timing the modules assert on) are stubbed to a FIFO-above-gateway pair
 on the CPU: the card holds the measured ones (``chip_smoke.py`` phase
 8b)."""
+import functools
 import importlib
 import math
+from concurrent.futures import Future
 
 import pytest
 import torch
 
 import benchmarks.common as ref_common
+from repro.testing.clock import FakeClock as RefClock
 from repro_torch.bench import common as port_common
+from repro_torch.testing.clock import FakeClock
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -130,11 +134,33 @@ def test_prefetch_matches_reference(monkeypatch, tmp_path):
     assert out["on"]["host_cb_per_req"] < out["off"]["host_cb_per_req"]
 
 
+def _inline(executors: dict) -> dict:
+    """Each executor's ``submit`` runs the batch on the calling thread and
+    returns a finished future, so every completion callback runs inline,
+    in submission order."""
+    for ex in executors.values():
+        def submit(seeds, _ex=ex):
+            fut = Future()
+            fut.set_result(_ex.run(seeds))
+            return fut
+        ex.submit = submit
+    return executors
+
+
 def _gateway_patch(streams):
     """Record each package's overload streams; stub the interactive p99s
-    (FIFO's first call, then the gateway's) on the CPU."""
+    (FIFO's first call, then the gateway's) on the CPU. Both runs are made
+    deterministic: each engine (and the gateway, which reads the engine's
+    clock) takes a ``FakeClock`` of its package, and each executor runs
+    inline (:func:`_inline`), so the dispatch order and every outcome
+    count follow from the stream alone, not from thread timing."""
     def patch(monkeypatch, ref, port):
-        for key, mod in (("ref", ref), ("port", port)):
+        for key, mod, clock in (("ref", ref, RefClock),
+                                ("port", port, FakeClock)):
+            monkeypatch.setattr(mod, "ServingEngine", functools.partial(
+                mod.ServingEngine, clock=clock()))
+            monkeypatch.setattr(mod, "make_executors", lambda *a, _m=(
+                mod.make_executors), **kw: _inline(_m(*a, **kw)))
             build, calls = mod.build_stream, []
 
             def recorded(*a, _build=build, _key=key, **kw):
