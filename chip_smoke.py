@@ -280,6 +280,30 @@ Phases (any failed check exits non-zero before the result line):
              under the card's memory, step ms by stage (forward, backward,
              the data-axis sum, optimizer, gather) logged. One
              ``{"lm_tp_train": ...}`` line.
+7f. moe fsdp train — deepseek-moe-16b ``train_4k`` by the reference's
+             full FSDP, after 7e's memory is freed: its published widths,
+             ``MOE_TRAIN_LAYERS`` of its 28 layers (2,770,880,512
+             parameters, 44.33 GB of fp32 state), through ``repro_torch.
+             launch.lm --shape train_4k --layers MOE_TRAIN_LAYERS --batch
+             4 --micro 1`` (16,384 tokens a step) four times, each run's
+             memory freed before the next: world 1, then ``--mesh-world
+             4`` at ``--model`` 4, 2 and 1 (four logical shards on card 0:
+             experts and heads over four model shards; two data groups;
+             four data groups, pure FSDP). Every run: finite losses, step 0
+             between ln V and ln V + 1.5, peak under the card's memory, in
+             every layer kept + dropped = T·k and every expert's load at
+             most the micro-batch's capacity (1,920); step ms by stage and
+             the dropped share logged. Each mesh run: each logical shard's
+             weights and mu/nu bytes equal to ``lm_common.
+             train_placement``'s; step 0's loss within
+             ``LM_BF16_LOSS_TOL`` of world 1's; each step's routing
+             compared with world 1's, the tokens routed apart reported
+             with their k/(k+1) gaps (as 7b); world 1 run again fed the
+             mesh run's routing, its step 0 loss within
+             ``LM_BF16_LOSS_TOL`` and its gathered mu after the last step
+             within ``LM_BF16_GRAD_TOL`` in norm of the mesh run's; the
+             free run's mu within ``LM_BF16_GRAD_TOL`` unless tokens were
+             routed apart. One ``{"moe_fsdp_train": ...}`` line.
 8. figures — the paper's evaluation, last, after the earlier phases'
              memory is freed: the eight modules of ``repro_torch.bench.run``
              on ``cuda`` at the reference's sizes, then
@@ -459,6 +483,13 @@ TP_LAYERS = 4              # phase 7e's depth cut: 26.98 GB of fp32 state
 TP_PARAMS = 1_686_196_224  # its parameter elements, QKV biases included
 TP_STEPS = 2               # phase 7e: steps a run (B 2, --micro 1)
 TP_MESHES = ((4, 4), (4, 2))  # (--mesh-world, --model), all on card 0
+MOE_TRAIN_ARCH = "deepseek-moe-16b"  # phase 7f: MoE train_4k by full FSDP
+MOE_TRAIN_LAYERS = 4       # phase 7f's depth cut: 44.33 GB of fp32 state
+MOE_TRAIN_PARAMS = 2_770_880_512  # its parameter elements
+MOE_TRAIN_STEPS = 2        # phase 7f: steps a run (B 4, --micro 1)
+# (--mesh-world, --model), all on card 0: experts and heads over four
+# model shards; over two, two data groups; pure FSDP, four data groups
+MOE_TRAIN_MESHES = ((4, 4), (4, 2), (4, 1))
 
 
 def log(msg: str) -> None:
@@ -3618,6 +3649,254 @@ def lm_tp_train_phase() -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 7f
+# ---------------------------------------------------------------------------
+class RoutingLog:
+    """Each layer's routing in the runs of the LM launcher's train step,
+    recorded from ``models/moe.py::route`` (and, with ``forced``, replaced
+    there): an MoE layer routes each data group once in its forward and
+    once more in its recompute, so call ``c`` of layer ``i`` (``groups``
+    calls a pass) belongs to step ``c // (2 · groups)``. The layer is
+    known from the call that reaches ``route``: ``moe_route`` names its
+    module (world 1, layers in their order of first call), the FSDP
+    ``layer`` its index (a mesh). With ``forced`` (``{(step, layer):
+    top_e}``), world 1's ``moe_route`` takes those experts, its weights
+    the router's probabilities there renormalised as ``route`` does."""
+
+    def __init__(self, groups: int, forced: dict | None = None):
+        self.groups, self.forced = groups, forced
+        self.calls: dict[int, list] = {}
+        self.layer_of: dict[int, int] = {}
+        self.current = 0
+
+    def __enter__(self):
+        from repro_torch.models import fsdp, moe
+        self._saved = (moe.route, moe.moe_route, fsdp.layer)
+        route, moe_route, layer = self._saved
+
+        def logged_route(x, router, cfg):
+            out = route(x, router, cfg)
+            calls = self.calls.setdefault(self.current, [])
+            calls.append((out[0].detach(), out[2]))
+            return out
+
+        def logged_moe_route(mod, x, cfg):
+            self.current = self.layer_of.setdefault(id(mod),
+                                                    len(self.layer_of))
+            probs, top_w, top_e = moe_route(mod, x, cfg)
+            if self.forced is None:
+                return probs, top_w, top_e
+            step = (len(self.calls[self.current]) - 1) // (2 * self.groups)
+            top_e = self.forced[step, self.current]
+            top_w = probs.gather(1, top_e)
+            return probs, top_w / top_w.sum(-1, keepdim=True).clamp_min(
+                1e-9), top_e
+
+        def logged_layer(model, i, *args):
+            self.current = i
+            return layer(model, i, *args)
+
+        moe.route, moe.moe_route, fsdp.layer = (logged_route,
+                                                logged_moe_route,
+                                                logged_layer)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import fsdp, moe
+        moe.route, moe.moe_route, fsdp.layer = self._saved
+
+    def forward(self, steps: int) -> dict:
+        """``{(step, layer): (probs, top_e)}`` of each step's forward, the
+        groups' concatenated in group order; fails unless each layer
+        routed ``2 · groups`` times a step and its recompute chose the
+        forward's experts."""
+        import torch
+        out, g = {}, self.groups
+        for i, calls in self.calls.items():
+            check(len(calls) == 2 * g * steps, f"moe fsdp train: layer {i} "
+                  f"routed {len(calls)} times in {steps} steps of {g} "
+                  "group(s), not twice a group a step")
+            for t in range(steps):
+                fwd, again = (calls[2 * g * t:2 * g * t + g],
+                              calls[2 * g * t + g:2 * g * (t + 1)])
+                check(all(bool((a[1] == b[1]).all())
+                          for a, b in zip(fwd, again)),
+                      f"moe fsdp train: layer {i} step {t}'s recompute "
+                      "routed apart from its forward")
+                out[t, i] = tuple(torch.cat([c[j] for c in fwd])
+                                  for j in (0, 1))
+        return out
+
+
+def mu_rel(got: dict, want: dict) -> float:
+    """``‖got - want‖ / ‖want‖`` over every tensor of two mu trees of the
+    same names, each pair compared on ``got``'s device."""
+    import math
+    num = den = 0.0
+    for name, w in want.items():
+        g = got[name]
+        w = w.to(g.device)
+        num += float(((g - w) ** 2).sum())
+        den += float((w ** 2).sum())
+    return math.sqrt(num / den)
+
+
+def moe_train_phase() -> None:
+    """deepseek-moe-16b ``train_4k`` at its published widths,
+    ``MOE_TRAIN_LAYERS`` of its 28 layers, through ``repro_torch.launch.lm
+    --shape train_4k`` (fp32 weights and AdamW state, bf16 activations,
+    4,096 positions, B 4, ``--micro 1``, ``MOE_TRAIN_STEPS`` steps from
+    the same seed), four times, each run's memory freed before the next:
+    world 1, then ``--mesh-world 4`` at each ``--model`` of
+    ``MOE_TRAIN_MESHES`` (four logical shards on card 0, every weight and
+    its state split by the reference's full FSDP). Every run: finite
+    losses, step 0 between ln V and ln V + 1.5, the peak under the card's
+    memory, in every layer kept + dropped = T·k and no expert's load over
+    the micro-batch's capacity; step ms by stage and the dropped share
+    logged. Each mesh run: each logical shard's weights and mu/nu bytes
+    equal to ``lm_common.train_placement``'s; step 0's loss within
+    ``LM_BF16_LOSS_TOL`` of world 1's; the gathered AdamW mu after the
+    last step within ``LM_BF16_GRAD_TOL`` of world 1's in norm. bf16
+    partial sums in other orders move the routing of tokens whose k-th
+    and (k+1)-th router probabilities lie close, so each step's routing
+    is compared with world 1's and the flipped assignments reported with
+    those gaps, as phase 7b does; and, as 7b holds its outputs, world 1
+    runs again fed the mesh run's routing, and that run's step 0 loss and
+    mu are held within the same limits. The free run's mu may then lie
+    past ``LM_BF16_GRAD_TOL`` only where tokens were routed apart. One
+    ``{"moe_fsdp_train": ...}`` line."""
+    import math
+
+    import torch
+    from repro_torch.configs import LM_ARCHS, lm_common
+    from repro_torch.launch import lm as lm_launcher
+    from repro_torch.models import moe as moe_mod
+
+    cfg = LM_ARCHS[MOE_TRAIN_ARCH]
+    k, total = cfg.moe.top_k, torch.cuda.get_device_properties(0).total_memory
+    vocab = cfg.vocab
+    base = ["--arch", MOE_TRAIN_ARCH, "--shape", "train_4k", "--layers",
+            str(MOE_TRAIN_LAYERS), "--steps", str(MOE_TRAIN_STEPS),
+            "--batch", "4", "--micro", "1", "--device", "cuda"]
+    tokens = 4 * 4096
+    cap = moe_mod.capacity(tokens, cfg.moe)
+
+    def run(world: int, model: int, key: str, forced=None):
+        keep = {}
+        t0 = time.perf_counter()
+        with RoutingLog(world // model, forced) as routing:
+            report = lm_launcher.train(lm_launcher.parse_args(
+                base + ["--mesh-world", str(world), "--model", str(model)]),
+                keep=keep)
+        seconds = time.perf_counter() - t0
+        losses, stages = report["losses"], report["stage_ms"]
+        dropped = [sum(st["dropped_by_layer"]) / (tokens * k
+                                                  * MOE_TRAIN_LAYERS)
+                   for st in report["moe"]]
+        log(f"moe fsdp train {key} ({report['param_elements']:,} "
+            f"parameters, {MOE_TRAIN_LAYERS} layers, batch "
+            f"{report['batch']} in {report['micro']} micro-batch(es), data "
+            f"{report['data']} x model {report['model']}): losses {losses} "
+            f"(ln V = {math.log(vocab):.4f}), step ms "
+            f"{[round(x, 1) for x in report['step_ms']]}, stages "
+            f"{[{n: round(v, 2) for n, v in st.items()} for st in stages]}, "
+            f"dropped share {[round(d, 5) for d in dropped]}, peak "
+            f"{report['peak_bytes'] / 2**30:.2f} GiB of "
+            f"{total / 2**30:.2f}, {seconds:.1f} s")
+        check(report["param_elements"] == MOE_TRAIN_PARAMS
+              and report["seq"] == 4096,
+              f"moe fsdp train {key} ran {report['param_elements']:,} "
+              f"parameters at seq {report['seq']}")
+        check(all(math.isfinite(x) for x in losses)
+              and 0 < losses[0] - math.log(vocab) < 1.5,
+              f"moe fsdp train {key} losses {losses}")
+        check(report["peak_bytes"] < total, f"moe fsdp train {key} peak "
+              f"{report['peak_bytes']} B over the card's {total} B")
+        for t, st in enumerate(report["moe"]):
+            check(st["capacity"] == cap and st["assignments"] == tokens * k
+                  and all(sum(load) + d == tokens * k for load, d in zip(
+                      st["expert_load_by_layer"], st["dropped_by_layer"]))
+                  and max(max(load) for load in st["expert_load_by_layer"])
+                  <= cap,
+                  f"moe fsdp train {key} step {t}: router stats {st} "
+                  f"against capacity {cap} and T·k {tokens * k}")
+        sb = report["shard_bytes"]
+        check(sb["weights"] == sb["planned_weights"]
+              and sb["state"] == sb["planned_state"],
+              f"moe fsdp train {key}: shard bytes {sb} against the "
+              "placement")
+        model_, state = keep.pop("model"), keep.pop("opt_state")
+        mu = (dict(state.mu) if world == 1 else lm_common.gathered_opt_state(
+            model_, state, device="cuda", keys=("mu",))["mu"])
+        line = {"losses": losses, "step_ms": report["step_ms"],
+                "stage_ms": stages, "dropped_share": dropped,
+                "peak_bytes": report["peak_bytes"], "cards": report["cards"],
+                "shard_bytes": sb, "seconds": seconds}
+        del model_, state, keep
+        return line, mu, routing.forward(MOE_TRAIN_STEPS)
+
+    lines = {}
+    one, mu1, routes1 = run(1, 1, "world_1_model_1")
+    mu1 = {n: v.cpu() for n, v in mu1.items()}
+    lines["world_1_model_1"] = one
+    gc.collect()
+    torch.cuda.empty_cache()
+    for world, model in MOE_TRAIN_MESHES:
+        key = f"world_{world}_model_{model}"
+        line, mu, routes = run(world, model, key)
+        gc.collect()
+        torch.cuda.empty_cache()
+        free_loss = abs(line["losses"][0] - one["losses"][0])
+        free_mu = mu_rel(mu, mu1)
+        flips = {}
+        for (t, i), (probs, top_e) in routes1.items():
+            differ, gaps = routing_flips(probs, top_e, routes[t, i][1], k)
+            flips[f"step_{t}_layer_{i}"] = {
+                "tokens": len(differ),
+                "gap_k_k1": ([min(gaps), statistics.median(gaps), max(gaps)]
+                             if gaps else [])}
+        flipped = sum(f["tokens"] for f in flips.values())
+        forced = {ti: top_e for ti, (_, top_e) in routes.items()}
+        del routes
+        fed, mu_fed, _ = run(1, 1, f"world_1_fed_{key}", forced)
+        del forced
+        fed_loss = abs(line["losses"][0] - fed["losses"][0])
+        fed_mu = mu_rel(mu, mu_fed)
+        del mu, mu_fed
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"moe fsdp train {key} against world 1: step 0 loss |diff| "
+            f"{free_loss:.3g} (limit {LM_BF16_LOSS_TOL}), mu after step "
+            f"{MOE_TRAIN_STEPS - 1} {free_mu:.3g} of its norm; tokens "
+            f"routed apart {flipped} in all (of {tokens} in each of "
+            f"{len(flips)} (step, layer) pairs), by pair {flips}; world 1 "
+            "fed this run's routing: "
+            f"step 0 loss |diff| {fed_loss:.3g}, mu {fed_mu:.3g} (limit "
+            f"{LM_BF16_GRAD_TOL}); each shard's bytes = train_placement")
+        check(free_loss <= LM_BF16_LOSS_TOL,
+              f"moe fsdp train {key} step 0 loss |diff| {free_loss:.3g} "
+              f"from world 1's (limit {LM_BF16_LOSS_TOL})")
+        check(fed_loss <= LM_BF16_LOSS_TOL and fed_mu <= LM_BF16_GRAD_TOL,
+              f"moe fsdp train {key} against world 1 fed its routing: "
+              f"step 0 loss |diff| {fed_loss:.3g} (limit "
+              f"{LM_BF16_LOSS_TOL}), mu {fed_mu:.3g} of the norm (limit "
+              f"{LM_BF16_GRAD_TOL})")
+        check(free_mu <= LM_BF16_GRAD_TOL or flipped,
+              f"moe fsdp train {key}: mu {free_mu:.3g} of world 1's norm "
+              f"(limit {LM_BF16_GRAD_TOL}) with every token routed alike")
+        line.update(loss0_abs_diff=free_loss, mu_rel_diff=free_mu,
+                    routed_apart=flips, fed_routing={
+                        "losses": fed["losses"], "loss0_abs_diff": fed_loss,
+                        "mu_rel_diff": fed_mu})
+        lines[key] = line
+    del mu1, routes1
+    print(json.dumps({"moe_fsdp_train": {
+        "arch": MOE_TRAIN_ARCH,
+        "reduced": {"n_layers": [28, MOE_TRAIN_LAYERS], "batch": [256, 4]},
+        "params": MOE_TRAIN_PARAMS, "capacity": cap, **lines}}), flush=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 8
 # ---------------------------------------------------------------------------
 FIGURE_STORES = ("quiver", "hash", "degree", "freq")  # placement_compare's
@@ -4291,6 +4570,13 @@ def main() -> None:
     t0 = time.perf_counter()
     lm_tp_train_phase()
     log(f"lm tp train phase in {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7f. deepseek-moe-16b train_4k by full FSDP on logical shards
+    t0 = time.perf_counter()
+    moe_train_phase()
+    log(f"moe fsdp train phase in {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
 

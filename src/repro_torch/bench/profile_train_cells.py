@@ -9,10 +9,12 @@ Each cell is built by its launcher's ``train_cell``. ``lm`` is ``--arch``
 train_4k`` runs it (published widths and depth, fp32 weights and AdamW
 state, bf16 activations, B 1, 4,096 positions); with ``--mesh-world W
 [--model M]`` on that launcher's ``("data", "model")`` mesh (one shard a
-card, round-robin past the cards; its default batch and micro-batches),
-the stages adding the data-axis sum (``data_sum``) and the ZeRO-1 gather
-(``gather``), and the report each card's busy time and busy share of the
-profiled step (the idle shares are then of all the cards' time). ``din``
+card, round-robin past the cards; its default batch and micro-batches;
+a dense arch by ZeRO-1, an MoE arch such as deepseek-moe-16b by full
+FSDP), the stages adding the data-axis sum (``data_sum``) and, for a
+dense arch, the ZeRO-1 gather (``gather``), and the report each card's
+busy time and busy share of the profiled step (the idle shares are then
+of all the cards' time). ``din``
 is DIN ``train_batch`` as ``repro_torch.launch.recsys_din --config din
 --train-steps`` runs it (B 65,536, history 100, 10M items). Each step's
 batch is drawn first (DIN's on the host, as the launcher draws it, then

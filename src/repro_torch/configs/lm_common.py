@@ -2,10 +2,11 @@
 ``src/repro/configs/lm_common.py``: the shapes, the sharding rules and
 specs, the dry-run cell (:func:`build_lm_cell`), the smoke reduction
 (:func:`lm_smoke`) and the ``train_4k`` cell's step (:func:`train_step`,
-on one device or, for a dense arch, over a ``("data", "model")`` mesh by
-the reference's ZeRO-1 rule, :func:`train_rules`); and, the port's own,
-where a served LM lives on a mesh of cards (:func:`serve_placement`) and
-where a trained one does (:func:`train_placement`).
+on one device or over a ``("data", "model")`` mesh by the reference's
+rule, :func:`train_rules`: ZeRO-1 for a dense arch, full FSDP for an
+MoE); and, the port's own, where a served LM lives on a mesh of cards
+(:func:`serve_placement`) and where a trained one does
+(:func:`train_placement`, :func:`fsdp_working_set`).
 
 Shapes (per assignment):
   train_4k    — train_step,  seq 4096,   global_batch 256
@@ -33,6 +34,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import Arch, CellSpec
 from repro_torch.launch.mesh import ProductionMesh
 from repro_torch.models.moe import EXPERT_WEIGHTS, expert_ranges
+from repro_torch.models.fsdp import fsdp_loss, split_range
 from repro_torch.models.tensor_parallel import group_loss
 from repro_torch.models.transformer import (CACHE_DTYPE, KV_CHUNK, LM,
                                             LMConfig, LOSS_CHUNK, Q_CHUNK,
@@ -96,7 +98,7 @@ def train_step(model: LM, opt: AdamW, opt_state: AdamWState, batch: dict,
     micro-batches) and ``optimizer`` are timed. The gradients are released
     after the update. Returns the new state and the loss.
 
-    A tensor-parallel ``model`` (on a train mesh, :class:`LM`) takes the
+    A ``model`` on a train mesh (:class:`LM` with ``rules``) takes the
     mesh's step, :func:`_mesh_step`, with its ``opt_state`` from
     ``opt.init(zero1_params(model))``."""
     if model.tensor_parallel:
@@ -138,16 +140,20 @@ def train_step(model: LM, opt: AdamW, opt_state: AdamWState, batch: dict,
 
 
 # ---------------------------------------------------------------------------
-# the train_4k step over a ("data", "model") mesh (dense archs, ZeRO-1)
+# the train_4k step over a ("data", "model") mesh (dense archs by ZeRO-1,
+# MoE archs by full FSDP)
 # ---------------------------------------------------------------------------
 def train_rules(mesh, cfg: LMConfig) -> Rules:
     """The rules the ``train_4k`` cell lays its weights out by
     (``src/repro/configs/lm_common.py:147-156``): for a dense arch the
     reference's ZeRO-1, ``lm_rules`` with ``"fsdp"`` rebound to None, so
     the weights split over ``"model"`` (``"tp"``, ``"tp_kv"``,
-    ``"vocab_tp"``) and are replicated over the data axes; an MoE keeps
-    full FSDP, ``lm_rules`` itself. The optimizer state always takes
-    ``lm_rules(mesh, "train_4k", cfg)``."""
+    ``"vocab_tp"``) and are replicated over the data axes
+    (:mod:`repro_torch.models.tensor_parallel`); an MoE keeps full FSDP,
+    ``lm_rules`` itself, so every weight is split over the data axes too
+    and its experts over ``"model"`` (:mod:`repro_torch.models.fsdp`).
+    The optimizer state always takes ``lm_rules(mesh, "train_4k",
+    cfg)``."""
     rules = lm_rules(mesh, "train_4k", cfg)
     if cfg.moe is not None:
         return rules
@@ -156,7 +162,12 @@ def train_rules(mesh, cfg: LMConfig) -> Rules:
 
 @dataclasses.dataclass(frozen=True)
 class Zero1Layout:
-    """Where each shard's state of a tensor-parallel LM lies.
+    """Where each shard's state of an LM on a train mesh lies. Under an
+    MoE's full FSDP the weight block is the state block: each shard
+    updates its whole block, and a weight's distinct blocks are one a
+    shard but where it is replicated over ``"model"`` (the router, the
+    norm gains), so the update leaves nothing to gather
+    (:attr:`gathers` is False).
 
     Attributes:
         shapes: each parameter's whole shape, by name.
@@ -177,6 +188,12 @@ class Zero1Layout:
     state: dict
     holders: dict
     owners: dict
+
+    @property
+    def gathers(self) -> bool:
+        """Whether a shard's state block is smaller than its weight block
+        somewhere (ZeRO-1), so the updated blocks are gathered."""
+        return any(self.state[n] != self.weight[n] for n in self.shapes)
 
     def view(self, model: LM, shard: int, name: str,
              of: Optional[int] = None) -> torch.Tensor:
@@ -216,13 +233,15 @@ def zero1_params(model: LM, layout: Optional[Zero1Layout] = None) -> dict:
 
 
 def gathered_opt_state(model: LM, state: AdamWState,
-                       device: str | torch.device = "cpu") -> dict:
-    """``{"mu": {name: whole}, "nu": {...}}``: a tensor-parallel
-    ``model``'s AdamW state assembled from its shards' blocks, under the
-    names of an :class:`LM` without a mesh."""
+                       device: str | torch.device = "cpu", *,
+                       keys: tuple = ("mu", "nu")) -> dict:
+    """``{"mu": {name: whole}, "nu": {...}}`` (those of ``keys``): the
+    AdamW state of a ``model`` on a train mesh assembled from its shards'
+    blocks, under the names of an :class:`LM` without a mesh."""
     layout = zero1_layout(model)
     out = {}
-    for key, tree in (("mu", state.mu), ("nu", state.nu)):
+    for key in keys:
+        tree = getattr(state, key)
         out[key] = {}
         for name, shape in layout.shapes.items():
             full = torch.empty(shape, dtype=torch.float32, device=device)
@@ -237,29 +256,34 @@ def _mesh_step(model: LM, opt: AdamW, opt_state: AdamWState, batch: dict,
                cfg: LMConfig, *, micro: int, chunks: Optional[dict],
                timer: Optional[StageTimer]
                ) -> tuple[AdamWState, torch.Tensor]:
-    """:func:`train_step` on a tensor-parallel ``model``, in the
+    """:func:`train_step` on a ``model`` on a train mesh, in the
     reference's order:
 
     1. micro-batch i is rows ``[i·B/micro, (i+1)·B/micro)`` of the batch,
        split over ``"data"`` by the ``"batch"`` spec: data group g takes
-       its ``B/micro/D`` rows, runs its forward
+       its ``B/micro/D`` rows. A dense arch runs each group's forward
        (:func:`~repro_torch.models.tensor_parallel.group_loss`, over the
        micro-batch's positions) and, the groups together, its backward;
-       each shard's gradients add up in its ``.grad``;
+       an MoE couples the groups, so its forward runs every group layer
+       by layer (:func:`~repro_torch.models.fsdp.fsdp_loss`), then its
+       backward; each shard's gradients add up in its ``.grad`` (a shard
+       whose copy of a weight no group read, as the router off the
+       groups' home shards, has none);
     2. ``data_sum``: each shard's block of each weight's state takes the
        sum of that block's gradient over every shard holding the weight
        block, in shard order, divided by ``micro`` (when above 1) — the
-       reduce over ``"data"``, and over ``"model"`` for a weight
+       reduce over ``"data"`` (ZeRO-1; under full FSDP the gather's
+       backward has reduced it), and over ``"model"`` for a weight
        replicated there, each shard its own part;
-    3. ``optimizer``: ``AdamW.update`` on those blocks (ZeRO-1: each shard
-       its state block with its own mu and nu), the clipping norm over
-       each distinct block once;
-    4. ``gather``: each shard copies the updated blocks of its weight's
-       other parts from their owners, so every replica holds the same
-       bits.
+    3. ``optimizer``: ``AdamW.update`` on those blocks (each shard its
+       state block with its own mu and nu), the clipping norm over each
+       distinct block once;
+    4. ``gather`` (ZeRO-1 only): each shard copies the updated blocks of
+       its weight's other parts from their owners, so every replica holds
+       the same bits.
 
     The loss is the mean over micro-batches of the groups' losses summed
-    in shard order."""
+    in shard order (and the MoE's aux losses)."""
     mesh = model.mesh
     data = mesh.world // len(model.groups[0])
     tokens, targets = batch["tokens"], batch["targets"]
@@ -283,14 +307,19 @@ def _mesh_step(model: LM, opt: AdamW, opt_state: AdamWState, batch: dict,
     if timer:
         timer.start()
     for i in range(micro):
-        group_losses = []
+        toks, tgts = [], []
         for g, group in enumerate(model.groups):
             dev = mesh.devices[group[0]]
             lo = i * mb + g * rows
-            group_losses.append(group_loss(
-                model, g, tokens[lo:lo + rows].to(dev),
-                targets[lo:lo + rows].to(dev), cfg, count=mb * s,
-                chunk=LOSS_CHUNK, **chunks))
+            toks.append(tokens[lo:lo + rows].to(dev))
+            tgts.append(targets[lo:lo + rows].to(dev))
+        if cfg.moe is not None:
+            group_losses = [fsdp_loss(model, toks, tgts, count=mb * s,
+                                      chunk=LOSS_CHUNK, **chunks)]
+        else:
+            group_losses = [group_loss(model, g, tok, tgt, cfg, count=mb * s,
+                                       chunk=LOSS_CHUNK, **chunks)
+                            for g, (tok, tgt) in enumerate(zip(toks, tgts))]
         if timer:
             timer.lap("forward")
         torch.autograd.backward(group_losses)
@@ -308,8 +337,13 @@ def _mesh_step(model: LM, opt: AdamW, opt_state: AdamWState, batch: dict,
             dev = mesh.devices[i]
             total = None
             for j in layout.holders[name][i]:
-                part = shard_params[j][name].grad[region].to(dev)
+                held = shard_params[j][name].grad
+                if held is None:
+                    continue
+                part = held[region].to(dev)
                 total = part if total is None else total + part
+            if total is None:
+                total = torch.zeros_like(layout.view(model, i, name))
             grads[(i, name)] = total / micro if micro > 1 else total
         for j in range(mesh.world):
             shard_params[j][name].grad = None
@@ -322,6 +356,9 @@ def _mesh_step(model: LM, opt: AdamW, opt_state: AdamWState, batch: dict,
     del grads
     if timer:
         timer.lap("optimizer")
+    loss = losses[0] if micro == 1 else torch.stack(losses).mean()
+    if not layout.gathers:
+        return opt_state, loss
     with torch.no_grad():
         for name in layout.shapes:
             for i in range(mesh.world):
@@ -333,7 +370,6 @@ def _mesh_step(model: LM, opt: AdamW, opt_state: AdamWState, batch: dict,
                             layout.view(model, o, name))
     if timer:
         timer.lap("gather")
-    loss = losses[0] if micro == 1 else torch.stack(losses).mean()
     return opt_state, loss
 
 
@@ -557,6 +593,49 @@ def train_placement(cfg: LMConfig, mesh, *, cards: Optional[int] = None
                 per_shard[i] += 4 * math.prod(hi - lo for lo, hi in block)
     return TrainPlacement(tuple(weight), tuple(2 * b for b in state),
                           tuple(i % cards for i in range(world)))
+
+
+def fsdp_working_set(cfg: LMConfig, mesh, *, cards: Optional[int] = None
+                     ) -> tuple:
+    """Each card's bytes of fp32 weights gathered over ``"data"`` and of
+    their gradients at the widest point of the ``train_4k`` step on
+    ``mesh`` (its shape only) over ``min(cards, world)`` cards, beside
+    :func:`train_placement`'s state. Under an MoE's full FSDP
+    (:mod:`repro_torch.models.fsdp`) every shard gathers, while a layer
+    runs, the whole ``"fsdp"`` dimension of its model block of each of
+    that layer's weights split over data (the router on the groups' home
+    shards only; of the experts, the ones the shard runs), and its
+    gradient comes back as large before it is reduced: the largest of
+    the embedding, the unembedding and a layer, summed over a card's
+    shards, which all run each layer together. Zero under ZeRO-1 (a
+    dense arch's weights are replicated over data) and without a data
+    axis. Activations and the activation-dtype casts of the weights are
+    not counted."""
+    world = math.prod(int(v) for v in mesh.shape.values())
+    cards = world if cards is None else min(cards, world)
+    rules = train_rules(mesh, cfg)
+    held = param_blocks(cfg, mesh, rules)
+    whole = param_blocks(cfg, mesh, Rules({**rules.table, "fsdp": None}))
+    data, model = mesh.shape.get("data", 1), mesh.shape["model"]
+    out = [0] * cards
+    for shard in range(world):
+        g, m = divmod(shard, model)
+        units: dict[str, int] = {}
+        for name, (_, blocks) in held.items():
+            block = whole[name][1][shard]
+            if blocks[shard] == block or (name.endswith(".moe.router")
+                                          and m):
+                continue
+            n = math.prod(hi - lo for lo, hi in block)
+            if name.split(".")[-2:-1] == ["moe"] \
+                    and name.rsplit(".", 1)[-1] in EXPERT_WEIGHTS:
+                lo, hi = block[0]
+                a, b = split_range(hi - lo, data)[g]
+                n = n // (hi - lo) * (b - a)
+            unit = name.split(".")[1] if name.startswith("layers.") else name
+            units[unit] = units.get(unit, 0) + 2 * 4 * n
+        out[shard % cards] += max(units.values(), default=0)
+    return tuple(out)
 
 
 def _named_shardings(model: LM, mesh, specs: dict) -> Optional[dict]:

@@ -64,33 +64,45 @@ the losses (step 0 about ln V + 0.5: unit-variance logits at init), step
 ms and their stages (forward, backward, optimizer), each card's planned
 and allocated bytes and peak.
 
-With ``--mesh-world W`` (and ``--model M``, default W) a dense arch
-trains over a ``("data", "model")`` mesh of ``(W / M, M)`` shards, one a
-card (round-robin where W exceeds the cards; every shard on the CPU
-there), by the reference's rule (``lm_common.train_rules``): ZeRO-1 only
-rebinds ``"fsdp"``, so the weights split over ``"model"`` — head-parallel
-attention, column- and row-parallel FFN, vocab-parallel embedding and
-cross entropy (``models/tensor_parallel.py``) — and are replicated over
-``"data"``, AdamW's mu and nu keep FSDP over ``"data"`` and TP over
-``"model"``, and the batch splits over ``"data"``. ``--batch`` then
-defaults to the smallest batch whose micro-batches split over
-``"data"``, and ``--micro`` to the reference's ``train_micro`` (4 when
-the batch splits in 4); a micro-batch that does not split over
-``"data"`` exits with status 2. The stages add ``data_sum`` (each
-shard's state block's gradient summed over the shards holding its weight
-block) and ``gather`` (the updated blocks copied to every replica), and
-the report each shard's planned and held bytes of weights and of mu and
-nu.
+With ``--mesh-world W`` (and ``--model M``, default W) the arch trains
+over a ``("data", "model")`` mesh of ``(W / M, M)`` shards, one a card
+(round-robin where W exceeds the cards; every shard on the CPU there),
+by the reference's rule (``lm_common.train_rules``), and the batch splits
+over ``"data"``. A dense arch takes ZeRO-1, which only rebinds
+``"fsdp"``: the weights split over ``"model"`` — head-parallel attention,
+column- and row-parallel FFN, vocab-parallel embedding and cross entropy
+(``models/tensor_parallel.py``) — and are replicated over ``"data"``,
+while AdamW's mu and nu keep FSDP over ``"data"`` and TP over
+``"model"``. An MoE arch keeps the reference's full FSDP
+(``models/fsdp.py``): every weight and its mu and nu split over
+``"data"`` too, the experts over ``"model"`` by ``"expert"``; each layer
+gathers its weights over ``"data"`` while it runs (again in its
+recompute) and reduces their gradients back to each shard's block, and
+the MoE routes each data group's tokens on its home card under one plan
+for the whole micro-batch. ``--batch`` then defaults to the smallest
+batch whose micro-batches split over ``"data"``, and ``--micro`` to the
+reference's ``train_micro`` (4 when the batch splits in 4); a
+micro-batch that does not split over ``"data"`` exits with status 2. The
+stages add ``data_sum`` (each shard's state block's gradient summed over
+the shards holding its weight block) and, under ZeRO-1, ``gather`` (the
+updated blocks copied to every replica), and the report each shard's
+planned and held bytes of weights and of mu and nu; for an MoE arch each
+card's planned working set and, for each step, the router stats of its
+last micro-batch (capacity, kept loads and drops by layer).
 
 Before anything is drawn, unless ``--smoke``, the launcher checks each
 card's fp32 weights, gradients, mu and nu (``lm_common.train_placement``)
-against one 80 GB card and exits with status 2 where one is over, naming
-the smallest ``--model`` that fits: codeqwen1.5-7b holds 131.0 GB at
-world 1, and 32.76 / 49.14 / 81.90 GB a card on four cards at ``--model``
-4 / 2 / 1, so it trains on four cards at ``--model`` 4 or 2 (ROADMAP
-A10b). MoE archs keep the reference's full FSDP, which is not ported:
-deepseek-moe-16b (270.1 GB) and phi3.5-moe-42b (670.0 GB) exit 2 at
-world 1, and with ``--mesh-world`` (ROADMAP A13's rest).
+and, for an MoE, the weights gathered over ``"data"`` while a layer runs
+and their gradients (``lm_common.fsdp_working_set``) against one 80 GB
+card, and exits with status 2 where one is over, naming the smallest
+``--model`` that fits, or else the smallest ``--mesh-world`` that fits
+one shard a card: codeqwen1.5-7b holds 131.0 GB at world 1, and 32.76 /
+49.14 / 81.90 GB a card on four cards at ``--model`` 4 / 2 / 1, so it
+trains on four cards at ``--model`` 4 or 2 (ROADMAP A10b);
+deepseek-moe-16b holds 270.1 GB at world 1 and 67.56 / 67.53 + 1.25 /
+67.52 + 1.68 GB a card on four cards at ``--model`` 4 / 2 / 1, so it
+trains on four cards at any; phi3.5-moe-42b holds 670.0 GB, 167.5 GB a
+card on four, and needs ``--mesh-world 16`` (41.9 GB a card).
 """
 from __future__ import annotations
 
@@ -115,10 +127,8 @@ from repro_torch.models.transformer import (LM, LMConfig, init_decode_cache,
 from repro_torch.training import StageTimer
 
 WEIGHT_DTYPE = torch.bfloat16  # serving weights, as the reference's cells
-TRAIN_STATE_BYTES = 16         # fp32 weights, gradients, mu and nu
 CARD_BYTES = 80e9              # one H100's device memory
 SMOKE_TRAIN_SEQ = 64           # --smoke training: two 32-position chunks
-TRAIN_CARDS = 4                # the cards a four-card host offers
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -148,8 +158,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="cut the depth to the first N layers")
     p.add_argument("--mesh-world", type=int, default=1,
                    help="serve: shards of an MoE's experts; train_4k: "
-                        "shards of a dense LM's (data, model) mesh (one a "
-                        "card)")
+                        "shards of the (data, model) mesh (one a card)")
     p.add_argument("--model", type=int, default=None,
                    help="train_4k: the mesh's model axis (default "
                         "--mesh-world: tensor-parallel only)")
@@ -190,11 +199,21 @@ def train_mesh_shape(world: int, model: int) -> ProductionMesh:
     return ProductionMesh(("data", "model"), (world // model, model))
 
 
+def train_card_bytes(cfg: LMConfig, world: int, model: int,
+                     cards: Optional[int]) -> tuple[tuple, tuple]:
+    """Each card's fp32 train state (``lm_common.train_placement``) and
+    gathered working set (``lm_common.fsdp_working_set``) for ``world``
+    shards at ``--model model`` over ``cards`` cards (one a shard by
+    default)."""
+    mesh = train_mesh_shape(world, model)
+    return (lm_common.train_placement(cfg, mesh, cards=cards).card_bytes,
+            lm_common.fsdp_working_set(cfg, mesh, cards=cards))
+
+
 def _fits(cfg: LMConfig, world: int, model: int,
           cards: Optional[int]) -> bool:
-    place = lm_common.train_placement(cfg, train_mesh_shape(world, model),
-                                      cards=cards)
-    return max(place.card_bytes) <= CARD_BYTES
+    state, work = train_card_bytes(cfg, world, model, cards)
+    return max(a + b for a, b in zip(state, work)) <= CARD_BYTES
 
 
 def train_refusal(args: argparse.Namespace, cfg: LMConfig
@@ -204,22 +223,9 @@ def train_refusal(args: argparse.Namespace, cfg: LMConfig
     None. The memory check (skipped with ``--smoke``) is per card:
     ``lm_common.train_placement``'s fp32 weights, gradients, mu and nu on
     each card of ``--mesh-world`` shards (one a card, or round-robin over
-    this host's cards), against one 80 GB card."""
+    this host's cards) and an MoE's gathered working set
+    (``lm_common.fsdp_working_set``), against one 80 GB card."""
     world = args.mesh_world
-    if cfg.moe is not None:
-        if world != 1 or args.model is not None:
-            return ("--mesh-world serves only, for an MoE arch: its "
-                    "train_4k over a mesh of cards is ROADMAP A13's rest")
-        state = lm_param_count(cfg) * TRAIN_STATE_BYTES
-        if not args.smoke and state > CARD_BYTES:
-            return (f"--arch {args.arch} has {lm_param_count(cfg):,} "
-                    f"parameters, {state / 1e9:.1f} GB of fp32 train state "
-                    "(weights, gradients, mu, nu) against one "
-                    f"{CARD_BYTES / 1e9:.0f} GB card: training it needs "
-                    "the reference's full FSDP over a mesh of cards, not "
-                    f"ported ({state / TRAIN_CARDS / 1e9:.1f} GB a card "
-                    f"over {TRAIN_CARDS} before activations; ROADMAP A13, "
-                    "MoE train_4k)")
     model = world if args.model is None else args.model
     if world < 1 or model < 1 or world % model:
         return (f"--model {model} does not divide --mesh-world {world} "
@@ -240,25 +246,31 @@ def train_refusal(args: argparse.Namespace, cfg: LMConfig
     if (args.batch // args.micro) % data:
         return (f"a micro-batch of {args.batch // args.micro} sequences "
                 f"does not split over the data axis of {data}")
-    if args.smoke or cfg.moe is not None:
+    if args.smoke:
         return None
     cards = _cards(args)
     place = lm_common.train_placement(cfg, mesh, cards=cards)
-    over = [c for c, b in enumerate(place.card_bytes) if b > CARD_BYTES]
+    work = lm_common.fsdp_working_set(cfg, mesh, cards=cards)
+    over = [c for c, (b, w) in enumerate(zip(place.card_bytes, work))
+            if b + w > CARD_BYTES]
     if not over:
         return None
+    fits_world = next((w for w in (2, 4, 8, 16, 32, 64)
+                       if _fits(cfg, w, w, None)), None)
     if world == 1:
-        fits = next((w for w in (2, 4, 8, 16) if _fits(cfg, w, w, None)),
-                    None)
         n = place.weight_bytes[0] // 4
+        rule = ("the reference's full FSDP: its experts split over the "
+                "model axis, every weight and its state over the data axis"
+                if cfg.moe is not None else
+                "its weights split over a mesh of cards by the reference's "
+                "rule, tensor-parallel over the model axis with ZeRO-1 "
+                "state (ROADMAP A10b)")
         return (f"--arch {args.arch} has {n:,} parameters, "
                 f"{place.card_bytes[0] / 1e9:.1f} GB of fp32 train state "
                 "(weights, gradients, mu, nu) against one "
-                f"{CARD_BYTES / 1e9:.0f} GB card: training it needs its "
-                "weights split over a mesh of cards by the reference's "
-                "rule, tensor-parallel over the model axis with ZeRO-1 "
-                "state (ROADMAP A10b; the smallest that fits, one shard a "
-                f"card, is --mesh-world {fits})")
+                f"{CARD_BYTES / 1e9:.0f} GB card: training it needs "
+                f"{rule}; the smallest that fits, one shard a card, is "
+                f"--mesh-world {fits_world}")
     c = over[0]
     shards = [i for i, card in enumerate(place.shard_cards) if card == c]
     weights = sum(2 * place.weight_bytes[i] for i in shards)
@@ -267,12 +279,15 @@ def train_refusal(args: argparse.Namespace, cfg: LMConfig
                  if world % m == 0 and _fits(cfg, world, m, cards)), None)
     smallest = (f"the smallest --model that fits is {fits}" if fits
                 else f"no --model fits --mesh-world {world} over "
-                     f"{cards or world} card(s)")
+                     f"{cards or world} card(s); the smallest --mesh-world "
+                     f"that fits, one shard a card, is {fits_world}")
+    gathered = (f", {work[c] / 1e9:.2f} GB gathered over the data axis "
+                "while a layer runs" if work[c] else "")
     return (f"--arch {args.arch} at --mesh-world {world} --model {model} "
             f"over {cards or world} card(s): card {c} would hold "
-            f"{place.card_bytes[c] / 1e9:.2f} GB of fp32 train state "
-            f"({weights / 1e9:.2f} GB of weights and gradients, "
-            f"{state / 1e9:.2f} GB of mu and nu) against "
+            f"{(place.card_bytes[c] + work[c]) / 1e9:.2f} GB of fp32 train "
+            f"state ({weights / 1e9:.2f} GB of weights and gradients, "
+            f"{state / 1e9:.2f} GB of mu and nu{gathered}) against "
             f"{CARD_BYTES / 1e9:.0f} GB; {smallest}")
 
 
@@ -360,12 +375,17 @@ def moe_prefill_report(model: LM, tokens: int) -> dict:
     ``dropped_by_layer`` and their sum ``dropped`` with its share of
     ``T·k·L``, ``max_load_share_by_layer`` (the largest expert load over
     ``capacity``) and ``expert_load_by_layer``."""
-    m = model.cfg.moe
-    stats = [blk.moe.last_stats for blk in model.layers]
+    return moe_router_report([blk.moe.last_stats for blk in model.layers],
+                             tokens, model.cfg.moe.top_k)
+
+
+def moe_router_report(stats: list[dict], tokens: int, top_k: int) -> dict:
+    """:func:`moe_prefill_report` of each layer's router ``stats`` over
+    ``tokens`` tokens (a prefill, or a training micro-batch)."""
     load = torch.stack([s["expert_load"] for s in stats]).cpu()
     dropped = torch.stack([s["dropped"] for s in stats]).cpu()
     cap = stats[0]["capacity"]
-    assignments = tokens * m.top_k
+    assignments = tokens * top_k
     return {"capacity": cap, "assignments": assignments,
             "dropped": int(dropped.sum()),
             "dropped_share": float(dropped.sum()) / (assignments
@@ -539,13 +559,18 @@ def train(args: argparse.Namespace, *, keep: Optional[dict] = None
           ) -> dict:
     """``args.steps`` steps of :func:`train_cell`; returns the report. On
     a mesh the report adds each shard's planned and held bytes and each
-    card's planned bytes (``lm_common.train_placement``), bytes after the
-    draw and peak; the stages add ``data_sum`` and ``gather``. ``keep``,
+    card's planned bytes (``lm_common.train_placement``; for an MoE also
+    its planned ``working_bytes``, ``lm_common.fsdp_working_set``), bytes
+    after the draw and peak; the stages add ``data_sum`` and, for a dense
+    arch, ``gather``. For an MoE arch ``moe`` holds each step's router
+    stats of its last micro-batch (:func:`moe_router_report`). ``keep``,
     when given, receives the model and the optimizer state after the last
     step (``"model"``, ``"opt_state"``)."""
     model, seq, draw, step, state = _train_cell(args)
     cfg = model.cfg
     devices = train_devices(model)
+    planned, work = train_card_bytes(cfg, args.mesh_world, args.model,
+                                     len(devices))
     place = lm_common.train_placement(
         cfg, train_mesh_shape(args.mesh_world, args.model),
         cards=len(devices))
@@ -553,19 +578,27 @@ def train(args: argparse.Namespace, *, keep: Optional[dict] = None
     shards = model.mesh.groups() if model.mesh is not None else [
         (devices[0], (0,))]
     cards = [{"device": str(dev), "shards": list(ids),
-              "planned_bytes": place.card_bytes[c],
+              "planned_bytes": planned[c],
               "bytes": (torch.cuda.memory_allocated(dev)
                         if dev.type == "cuda" else None)}
              for c, (dev, ids) in enumerate(shards)]
+    if cfg.moe is not None:
+        for card, w in zip(cards, work):
+            card["working_bytes"] = w
     for dev in devices:
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
-    losses, stages = [], []
+    losses, stages, moe = [], [], []
     for _ in range(args.steps):
         batch = draw()
         timer = StageTimer(devices)
         losses.append(float(step(batch, timer)))
         stages.append(timer.ms)
+        if cfg.moe is not None:
+            stats = (model.moe_stats.values() if model.mesh is not None
+                     else [blk.moe.last_stats for blk in model.layers])
+            moe.append(moe_router_report(
+                list(stats), args.batch // args.micro * seq, cfg.moe.top_k))
     for card, dev in zip(cards, devices):
         card["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
                               if dev.type == "cuda" else None)
@@ -586,7 +619,8 @@ def train(args: argparse.Namespace, *, keep: Optional[dict] = None
                             "weights": weights, "state": held},
             "cards": cards,
             "peak_bytes": (torch.cuda.max_memory_allocated(devices[0])
-                           if devices[0].type == "cuda" else None)}
+                           if devices[0].type == "cuda" else None),
+            **({"moe": moe} if cfg.moe is not None else {})}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:

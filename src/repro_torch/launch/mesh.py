@@ -10,11 +10,12 @@ sharded store batches
 the work for the shards of one card into one op, and a move between two
 shards of one card is no copy at all. An LM's expert shards
 (:mod:`repro_torch.models.moe`) run each shard's products on their own,
-so one card runs the code that W cards run, minus the peer copies. A
-dense LM trains over a ``("data", "model")`` mesh
-(:func:`make_host_mesh` with ``model``; :mod:`repro_torch.models.
-tensor_parallel`): its weights split over ``"model"`` and replicated over
-``"data"``, each shard's blocks on its own device.
+so one card runs the code that W cards run, minus the peer copies. An
+LM trains over a ``("data", "model")`` mesh (:func:`make_host_mesh` with
+``model``): a dense one's weights split over ``"model"`` and replicated
+over ``"data"`` (:mod:`repro_torch.models.tensor_parallel`), an MoE's
+split over both (:mod:`repro_torch.models.fsdp`), each shard's blocks on
+its own device.
 
 :func:`make_production_mesh` gives the reference's production meshes by
 shape alone (:class:`ProductionMesh`, no devices): the dry-run

@@ -69,6 +69,12 @@ dispatch, combine, shared experts, stats) runs on the home device. A
 the whole batch does, so the split changes where the products run, not
 their values on the CPU (the tests hold it bit for bit); on the card
 cuBLAS may choose another algorithm for another batch count.
+
+Training on a ``("data", "model")`` mesh (:mod:`repro_torch.models.fsdp`)
+splits each micro-batch's tokens over data groups; :func:`moe_apply_groups`
+routes each group on its home device and plans the whole micro-batch as
+one, as the reference's ``moe_apply`` over the micro-batch's ``b·S``
+tokens does.
 """
 from __future__ import annotations
 
@@ -202,13 +208,9 @@ def init_moe_(moe: MoE, generator: torch.Generator) -> MoE:
     mesh each expert weight is drawn whole on the generator's device, as
     without one (so the bits are the same on the same device), then each
     shard takes its slice and the whole tensor is freed."""
-    d = moe.router.shape[0]
-    sc_in = 1.0 / math.sqrt(d)
-    draws = [("router", sc_in), ("w1", sc_in), ("w3", sc_in),
-             ("w2", 1.0 / math.sqrt(moe.cfg.d_ff))]
-    for name, scale in draws:
-        if name == "router" or moe.shards is None:
-            getattr(moe, name).normal_(generator=generator).mul_(scale)
+    for name, scale in moe_draws(moe.router.shape[0], moe.cfg):
+        if name not in EXPERT_WEIGHTS or moe.shards is None:
+            moe.get_parameter(name).normal_(generator=generator).mul_(scale)
             continue
         part = getattr(moe.shards[0], name)
         whole = torch.empty((moe.cfg.num_experts, *part.shape[1:]),
@@ -217,12 +219,21 @@ def init_moe_(moe: MoE, generator: torch.Generator) -> MoE:
         for s in moe.shards:
             getattr(s, name).copy_(whole[s.lo:s.hi])
         del whole
-    if moe.cfg.n_shared:
-        s = moe.shared
-        for p, scale in ((s.w1, sc_in), (s.w3, sc_in),
-                         (s.w2, 1.0 / math.sqrt(moe.cfg.d_ff_shared))):
-            p.normal_(generator=generator).mul_(scale)
     return moe
+
+
+def moe_draws(d_model: int, cfg: MoEConfig) -> list[tuple[str, float]]:
+    """The reference's ``moe_init`` draws in their order: each weight's
+    name under :class:`MoE` and its scale (``router``, ``w1``, ``w3``
+    ~ N(0, 1/d), ``w2`` ~ N(0, 1/ff); ``shared.w1``/``shared.w3`` ~ N(0,
+    1/d), ``shared.w2`` ~ N(0, 1/ffs))."""
+    sc_in = 1.0 / math.sqrt(d_model)
+    draws = [("router", sc_in), ("w1", sc_in), ("w3", sc_in),
+             ("w2", 1.0 / math.sqrt(cfg.d_ff))]
+    if cfg.n_shared:
+        draws += [("shared.w1", sc_in), ("shared.w3", sc_in),
+                  ("shared.w2", 1.0 / math.sqrt(cfg.d_ff_shared))]
+    return draws
 
 
 def moe_init(generator: torch.Generator, d_model: int, cfg: MoEConfig,
@@ -298,7 +309,13 @@ def moe_route(moe: MoE, x: torch.Tensor, cfg: MoEConfig
     first k of a stable descending sort: the lower expert first on ties,
     as ``jax.lax.top_k``), weights renormalised by ``max(Σ, 1e-9)``.
     Returns ``(probs (T, E), top_w (T, k), top_e (T, k))``."""
-    probs = torch.softmax(x.float() @ moe.router, dim=-1)
+    return route(x, moe.router, cfg)
+
+
+def route(x: torch.Tensor, router: torch.Tensor, cfg: MoEConfig
+          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`moe_route` by the fp32 ``router (d, E)``."""
+    probs = torch.softmax(x.float() @ router, dim=-1)
     top_w, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_w, top_e = top_w[:, :cfg.top_k], top_e[:, :cfg.top_k]
     top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -398,14 +415,26 @@ def moe_combine(y: torch.Tensor, plan: DispatchPlan, top_w: torch.Tensor
     """Gather each assignment's expert row (zero when dropped), scale it
     by its weight cast to the activation dtype, and fold token t's k rows
     from zero in assignment order, in the activation dtype."""
+    return fold(assignment_rows(y, plan), top_w)
+
+
+def assignment_rows(y: torch.Tensor, plan: DispatchPlan) -> torch.Tensor:
+    """Each flat assignment's expert row of ``y (E, cap, d)``, zero when
+    dropped: ``(T·k, d)``."""
     e, cap, d = y.shape
+    gathered = y.reshape(e * cap, d)[plan.buf_idx.clamp_max(e * cap - 1)]
+    return torch.where(plan.keep[:, None], gathered,
+                       torch.zeros((), dtype=y.dtype, device=y.device))
+
+
+def fold(rows: torch.Tensor, top_w: torch.Tensor) -> torch.Tensor:
+    """Token t's k assignment ``rows`` (``(T·k, d)``, token-major) scaled
+    by their weights ``top_w (T, k)`` cast to the rows' dtype, folded from
+    zero in assignment order."""
     t, k = top_w.shape
-    flat_y = y.reshape(e * cap, d)
-    gathered = flat_y[plan.buf_idx.clamp_max(e * cap - 1)]
-    gathered = torch.where(plan.keep[:, None], gathered,
-                           torch.zeros((), dtype=y.dtype, device=y.device))
-    rows = (gathered * top_w.reshape(-1, 1).to(y.dtype)).view(t, k, d)
-    out = torch.zeros((t, d), dtype=y.dtype, device=y.device)
+    d = rows.shape[1]
+    rows = (rows * top_w.reshape(-1, 1).to(rows.dtype)).view(t, k, d)
+    out = torch.zeros((t, d), dtype=rows.dtype, device=rows.device)
     for j in range(k):
         out = out + rows[:, j]
     return out
@@ -424,11 +453,16 @@ def moe_stats(probs: torch.Tensor, top_e: torch.Tensor, plan: DispatchPlan,
     fp32, as the reference's bincount weighted by ``keep``), ``dropped``,
     the Switch-style ``aux_loss`` ``w · E · Σ_e f_e · P_e``, and
     ``capacity`` (``cap``, an int)."""
+    return _stats(top_e, plan, probs.sum(0), cfg)
+
+
+def _stats(top_e: torch.Tensor, plan: DispatchPlan, importance: torch.Tensor,
+           cfg: MoEConfig) -> dict:
+    """:func:`moe_stats` from the router probabilities' column sums."""
     e = cfg.num_experts
     load = torch.zeros(e, dtype=plan.slot.dtype, device=plan.slot.device)
     load.scatter_add_(0, top_e.reshape(-1), plan.keep.to(load.dtype))
     load = load.float()
-    importance = probs.sum(0)
     f = load / load.sum().clamp_min(1.0)
     pr = importance / importance.sum().clamp_min(1e-9)
     aux = cfg.router_aux_weight * e * torch.sum(f * pr)
@@ -453,3 +487,52 @@ def moe_apply(moe: MoE, x: torch.Tensor, cfg: MoEConfig
     """x: ``(T, d)`` tokens → ``(out (T, d)`` in ``x``'s dtype, stats)``;
     see :func:`moe_stats` for the stats (the FAP-for-experts signal)."""
     return moe_apply_routed(moe, x, cfg, *moe_route(moe, x, cfg))
+
+
+# ---------------------------------------------------------------------------
+# the MoE of a micro-batch split over data groups (training on a mesh)
+# ---------------------------------------------------------------------------
+def moe_apply_groups(xs: list[torch.Tensor], routers: list[torch.Tensor],
+                     pieces: list[tuple], cfg: MoEConfig, device
+                     ) -> tuple[list[torch.Tensor], dict]:
+    """The reference's ``moe_apply`` over one micro-batch whose tokens are
+    split over data groups, without its shared experts.
+
+    Args:
+        xs: each group's tokens ``(T_g, d)`` on its home device.
+        routers: each group's whole fp32 router ``(d, E)`` on that device.
+        pieces: ``(lo, hi, w1, w3, w2)``: experts ``[lo, hi)`` whole, on
+            the device that runs them; together ``[0, E)`` in order.
+        cfg: the MoE's config.
+        device: where the plan, the dispatch buffer and the expert outputs
+            live (the mesh's home device).
+
+    Each group routes its own tokens on its home device (:func:`route`);
+    the plan is the micro-batch's: :func:`moe_plan` of the groups'
+    ``top_e`` concatenated in group order (the micro-batch's row order),
+    so the capacity is that of all ``Σ T_g`` tokens and each slot counts
+    the earlier assignments of every group, as the reference's one plan
+    over the micro-batch does (a plan made group by group would give
+    other capacities and other drops); the tokens
+    are written into one ``(E, cap, d)`` buffer on ``device``, each piece's
+    rows copied to its device, its three products run there (every copy
+    and product issued before any copy-back), and the outputs copied back
+    in expert order; each group takes its
+    assignments' rows and folds them in assignment order on its home
+    device (:func:`fold`). The stats are the micro-batch's
+    (:func:`moe_stats`), the importance the groups' column sums added in
+    group order. Returns each group's output and the stats."""
+    routes = [route(x, r, cfg) for x, r in zip(xs, routers)]
+    top_e = torch.cat([t.to(device) for _, _, t in routes])
+    plan = moe_plan(top_e, cfg)
+    dispatch = moe_dispatch(torch.cat([x.to(device) for x in xs]), plan, cfg)
+    parts = [part.to(w[0].device) for part, (_, _, *w) in zip(
+        dispatch.split([hi - lo for lo, hi, *_ in pieces]), pieces)]
+    ys = [_swiglu(x, *w) for x, (_, _, *w) in zip(parts, pieces)]
+    rows = assignment_rows(torch.cat([y.to(device) for y in ys]), plan)
+    outs = [fold(r.to(x.device), top_w) for r, x, (_, top_w, _) in zip(
+        rows.split([x.shape[0] * cfg.top_k for x in xs]), xs, routes)]
+    importance = routes[0][0].sum(0).to(device)
+    for probs, _, _ in routes[1:]:
+        importance = importance + probs.sum(0).to(device)
+    return outs, _stats(top_e, plan, importance, cfg)

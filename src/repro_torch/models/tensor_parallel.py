@@ -2,7 +2,10 @@
 the reference's ``train_4k`` cell for dense archs
 (``src/repro/configs/lm_common.py:143-201``), where GSPMD lays the step
 out by the ZeRO-1 rules (``"fsdp"`` → None, ``"tp"``/``"tp_kv"``/
-``"vocab_tp"`` → ``"model"``).
+``"vocab_tp"`` → ``"model"``). An MoE on a train mesh
+(:mod:`repro_torch.models.fsdp`) gathers its blocks over ``"data"`` into
+these ZeRO-1 blocks while a layer runs and reuses :func:`attention`,
+:func:`vocab_embed` and :class:`VocabParallelCE` on them.
 
 The port has no GSPMD, so the layout and the moves are explicit. Each
 shard of the mesh holds its block of every weight (:class:`TPShard`,
@@ -100,15 +103,19 @@ class FanIn(torch.autograd.Function):
 
 
 class AllGather(torch.autograd.Function):
-    """Each shard's columns (last dimension) → their concatenation on each
-    shard's device; the backward sums the shards' gradients of the whole
-    in shard order and hands each shard its columns."""
+    """Each shard's block → the blocks concatenated on dimension ``dim``,
+    one copy on each shard's device; the backward sums the shards'
+    gradients of the whole in shard order and hands each shard its block
+    (the reduce-scatter). Over ``"model"`` it gathers k and v split inside
+    a head (``dim`` -1); over ``"data"`` a weight's FSDP blocks
+    (:mod:`repro_torch.models.fsdp`)."""
 
     @staticmethod
-    def forward(ctx, *parts):
+    def forward(ctx, dim, *parts):
         ctx.devices = tuple(p.device for p in parts)
-        ctx.widths = [p.shape[-1] for p in parts]
-        return tuple(torch.cat([p.to(d) for p in parts], -1)
+        ctx.widths = [p.shape[dim] for p in parts]
+        ctx.dim = dim
+        return tuple(torch.cat([p.to(d) for p in parts], dim)
                      for d in ctx.devices)
 
     @staticmethod
@@ -116,8 +123,8 @@ class AllGather(torch.autograd.Function):
         total = grads[0].to(ctx.devices[0], copy=True)
         for g in grads[1:]:
             total.add_(g.to(ctx.devices[0]))
-        return tuple(part.to(d) for part, d in zip(
-            total.split(ctx.widths, -1), ctx.devices))
+        return (None, *(part.to(d) for part, d in zip(
+            total.split(ctx.widths, ctx.dim), ctx.devices)))
 
 
 # ---------------------------------------------------------------------------
@@ -176,10 +183,15 @@ def tp_plan(cfg, blocks: dict, groups: list) -> TPPlan:
     def last(name: str, dim: int = -1) -> list:
         return [blocks[name][i][dim] for i in first]
 
+    ffn = []
+    if cfg.moe is None:
+        ffn = [("w1's columns", last("layers.0.w1"), cfg.d_ff)]
+    elif cfg.moe.n_shared:
+        ffn = [("the shared experts' w1 columns",
+                last("layers.0.moe.shared.w1"), cfg.moe.d_ff_shared)]
     for what, ranges, dim in (
             ("wq's columns", last("layers.0.wq"), cfg.n_heads * dh),
-            ("w1's columns", last("layers.0.w1"), cfg.d_ff),
-            ("the vocabulary", last("embed", 0), cfg.vocab)):
+            *ffn, ("the vocabulary", last("embed", 0), cfg.vocab)):
         _partition(what, ranges, dim)
     if last("embed", 0) != last("unembed"):
         raise ValueError("embed and unembed split the vocabulary apart")
@@ -211,17 +223,28 @@ def tp_plan(cfg, blocks: dict, groups: list) -> TPPlan:
 class TPBlock(nn.Module):
     """One layer's blocks on one shard: the parameters of
     :class:`~repro_torch.models.transformer.LMBlock` under its names, each
-    shaped by the shard's block (norm gains as :class:`RMSNorm`)."""
+    shaped by the shard's block (norm gains as :class:`RMSNorm`; an MoE's
+    ``moe.router``, ``moe.w1``… and ``moe.shared.w1``… in submodules of
+    those names, the router in fp32 as the reference draws it)."""
 
     def __init__(self, shapes: dict, *, dtype: torch.dtype, device):
         super().__init__()
         for name, shape in shapes.items():
+            *path, leaf = name.split(".")
+            if leaf == "weight":
+                *path, leaf = path
+            owner = self
+            for part in path:
+                if part not in owner._modules:
+                    owner.add_module(part, nn.Module())
+                owner = owner._modules[part]
             if name.endswith(".weight"):
-                setattr(self, name[:-len(".weight")],
-                        RMSNorm(shape[0], dtype=dtype, device=device))
+                owner.add_module(leaf, RMSNorm(shape[0], dtype=dtype,
+                                               device=device))
             else:
-                setattr(self, name, nn.Parameter(
-                    torch.empty(shape, dtype=dtype, device=device)))
+                owner.register_parameter(leaf, nn.Parameter(torch.empty(
+                    shape, device=device,
+                    dtype=torch.float32 if leaf == "router" else dtype)))
 
 
 class TPShard(nn.Module):
@@ -250,7 +273,8 @@ class TPShard(nn.Module):
 # ---------------------------------------------------------------------------
 # the forward and the loss of one data group
 # ---------------------------------------------------------------------------
-def _embed(shards: list, plan: TPPlan, tokens: torch.Tensor) -> torch.Tensor:
+def vocab_embed(shards: list, plan: TPPlan,
+                tokens: torch.Tensor) -> torch.Tensor:
     """Vocab-parallel lookup: each shard's rows for the tokens it holds,
     zeros elsewhere, summed in shard order on the home device (fp32)."""
     parts = []
@@ -266,6 +290,16 @@ def _embed(shards: list, plan: TPPlan, tokens: torch.Tensor) -> torch.Tensor:
 def _layer(blocks: list, plan: TPPlan, ropes: list, cfg, q_chunk: int,
            kv_chunk: int, h: torch.Tensor) -> torch.Tensor:
     """One decoder layer of a data group, ``h`` on its home device."""
+    return _dense_ffn(blocks, attention(blocks, plan, ropes, cfg, q_chunk,
+                                        kv_chunk, h))
+
+
+def attention(blocks: list, plan: TPPlan, ropes: list, cfg, q_chunk: int,
+              kv_chunk: int, h: torch.Tensor) -> torch.Tensor:
+    """A data group's attention with its residual add, ``h`` on its home
+    device: each model shard's ``blocks`` (a :class:`TPBlock`, or any
+    object with its attributes) norms ``h`` and attends over its heads,
+    and the partial products with ``wo`` are summed in shard order."""
     b, s, _ = h.shape
     dh = cfg.head_dim
     devs = [blk.ln1.weight.device for blk in blocks]
@@ -283,7 +317,7 @@ def _layer(blocks: list, plan: TPPlan, ropes: list, cfg, q_chunk: int,
         qkv.append((q, k, v))
     ks, vs = [t[1] for t in qkv], [t[2] for t in qkv]
     if plan.gather_kv:
-        ks, vs = AllGather.apply(*ks), AllGather.apply(*vs)
+        ks, vs = AllGather.apply(-1, *ks), AllGather.apply(-1, *vs)
     parts = []
     for blk, p, (q, _, _), k, v, (cos, sin) in zip(blocks, plan.shards, qkv,
                                                    ks, vs, ropes):
@@ -298,7 +332,13 @@ def _layer(blocks: list, plan: TPPlan, ropes: list, cfg, q_chunk: int,
                                 apply_rope(k, cos, sin), v, causal=True,
                                 q_chunk=q_chunk, kv_chunk=kv_chunk)
         parts.append(o.reshape(b, s, -1) @ blk.wo.to(o.dtype))
-    h = h + FanIn.apply(h.device, *parts)
+    return h + FanIn.apply(h.device, *parts)
+
+
+def _dense_ffn(blocks: list, h: torch.Tensor) -> torch.Tensor:
+    """A data group's SwiGLU FFN with its residual add: column-parallel
+    ``w1``/``w3``, row-parallel ``w2``, summed in shard order."""
+    devs = [blk.ln2.weight.device for blk in blocks]
     parts = []
     for blk, x in zip(blocks, FanOut.apply(devs, h)):
         x = blk.ln2(x)
@@ -402,23 +442,37 @@ def group_loss(model, group: int, tokens: torch.Tensor,
     once, each starting its own recompute."""
     shards = model.group(group)
     plan = model.plan
-    b, s = tokens.shape
-    devs = [sh.device for sh in shards]
-    h = _embed(shards, plan, tokens).to(cfg.adtype)
-    ropes = []
-    for dev in devs:
-        cos, sin = rope_angles(torch.arange(s, device=dev), cfg.head_dim,
-                               cfg.rope_theta)
-        ropes.append((cos[None], sin[None]))
+    h = vocab_embed(shards, plan, tokens).to(cfg.adtype)
+    ropes = group_ropes(shards, tokens.shape[1], cfg)
     remat = torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         fn = functools.partial(_layer, [sh.layers[i] for sh in shards],
                                plan, ropes, cfg, q_chunk, kv_chunk)
         h = checkpoint(fn, h, use_reentrant=True) if remat else fn(h)
-    d = h.shape[-1]
-    xs = [sh.final_ln(x).reshape(-1, d)
-          for sh, x in zip(shards, FanOut.apply(devs, h))]
+    return head_loss(shards, plan, h, targets,
+                     [sh.unembed for sh in shards], chunk) / count
+
+
+def group_ropes(shards: list, s: int, cfg) -> list:
+    """RoPE's ``(cos, sin)`` of positions ``[0, s)`` on each shard's
+    device."""
+    ropes = []
+    for sh in shards:
+        cos, sin = rope_angles(torch.arange(s, device=sh.device),
+                               cfg.head_dim, cfg.rope_theta)
+        ropes.append((cos[None], sin[None]))
+    return ropes
+
+
+def head_loss(shards: list, plan: TPPlan, h: torch.Tensor,
+              targets: torch.Tensor, unembeds: list,
+              chunk: int) -> torch.Tensor:
+    """A data group's summed cross entropy of ``h`` at ``targets``: each
+    shard's final norm of its copy of ``h``, then
+    :class:`VocabParallelCE` over its ``unembeds`` block."""
+    xs = [sh.final_ln(x).reshape(-1, h.shape[-1]) for sh, x in
+          zip(shards, FanOut.apply([sh.device for sh in shards], h))]
     nll = VocabParallelCE.apply(chunk, targets.reshape(-1).long(),
                                 tuple(p.vocab for p in plan.shards), *xs,
-                                *(sh.unembed for sh in shards))
-    return nll.sum() / count
+                                *unembeds)
+    return nll.sum()

@@ -35,10 +35,11 @@ logits are recomputed in the backward (:class:`ChunkedCrossEntropy`), so
 the full ``(B·S, V)`` fp32 logits and their gradient (7.5 GB at qwen3-4b's
 4,096 positions) are never resident at once. The embedding rows are
 gathered from the fp32 table and then cast (the reference casts the table,
-then gathers: the same values, and the gradient is summed in fp32). A
-dense LM too large for one card trains over a ``("data", "model")`` mesh
-of cards (``LM(mesh=, rules=)``): the same arithmetic tensor-parallel,
-:mod:`repro_torch.models.tensor_parallel`.
+then gathers: the same values, and the gradient is summed in fp32). An
+LM too large for one card trains over a ``("data", "model")`` mesh of
+cards (``LM(mesh=, rules=)``): a dense one tensor-parallel with ZeRO-1
+state (:mod:`repro_torch.models.tensor_parallel`), an MoE by the
+reference's full FSDP (:mod:`repro_torch.models.fsdp`).
 """
 from __future__ import annotations
 
@@ -58,9 +59,9 @@ from repro_torch.models.attention import (apply_rope, blockwise_attention,
                                           decode_attention, rope_angles)
 from repro_torch.models.common import RMSNorm, rms_norm
 from repro_torch.models.moe import (MoE, MoEConfig, gather_experts,
-                                    init_moe_, load_moe_)
+                                    init_moe_, load_moe_, moe_draws)
 from repro_torch.models.tensor_parallel import TPShard, tp_plan
-from repro_torch.sharding import block_slices, device_blocks
+from repro_torch.sharding import Rules, block_slices, device_blocks
 
 CACHE_DTYPE = torch.bfloat16  # the reference stores the KV cache in bf16
 # blockwise_attention's chunks in training: the reference LMConfig's
@@ -207,13 +208,18 @@ class LM(nn.Module):
     lives on ``device``, the home device, which defaults to
     ``mesh.devices[0]``.
 
-    With a ``mesh`` and ``rules`` (a dense LM on a train mesh,
-    ``("data", "model")``; ``lm_common.train_rules``), the LM is
-    tensor-parallel (:mod:`repro_torch.models.tensor_parallel`): shard
-    ``i`` holds, on ``mesh.devices[i]``, its block of every weight under
-    ``lm_param_specs(cfg, mesh, rules)`` (:func:`param_blocks`) as
-    ``shards[i]``, a :class:`~repro_torch.models.tensor_parallel.TPShard`
-    whose parameters carry this class's names. Such an LM trains
+    With a ``mesh`` and ``rules`` (a train mesh, ``("data", "model")``;
+    ``lm_common.train_rules``), shard ``i`` holds, on ``mesh.devices[i]``,
+    its block of every weight under ``lm_param_specs(cfg, mesh, rules)``
+    (:func:`param_blocks`) as ``shards[i]``, a :class:`~repro_torch.
+    models.tensor_parallel.TPShard` whose parameters carry this class's
+    names: a dense LM's ZeRO-1 blocks, tensor-parallel
+    (:mod:`repro_torch.models.tensor_parallel`), or an MoE's full-FSDP
+    blocks (:mod:`repro_torch.models.fsdp`), whose plan is that of the
+    blocks gathered over ``"data"``; it then also keeps ``replicas``
+    (each model coordinate's data replicas), ``expert_ranges`` (the
+    experts each model coordinate runs) and ``moe_stats`` (each layer's
+    router stats of the last forward). Such an LM trains
     (``lm_common.train_step``); it does not serve."""
 
     def __init__(self, cfg: LMConfig, *, dtype: torch.dtype = torch.float32,
@@ -223,10 +229,8 @@ class LM(nn.Module):
         self.mesh = mesh
         self.tensor_parallel = rules is not None
         if rules is not None:
-            if mesh is None or cfg.moe is not None:
-                raise ValueError("a tensor-parallel LM is a dense one on a "
-                                 "mesh (MoE training over a mesh is not "
-                                 "ported)")
+            if mesh is None:
+                raise ValueError("a tensor-parallel LM lives on a mesh")
             self.blocks = param_blocks(cfg, mesh, rules)
             self.shards = nn.ModuleList(
                 TPShard({name: tuple(hi - lo for lo, hi in blocks[i])
@@ -234,8 +238,17 @@ class LM(nn.Module):
                         cfg.n_layers, dtype=dtype, device=dev)
                 for i, dev in enumerate(mesh.devices))
             self.groups = mesh.axis_groups("model")
+            gathered = self.blocks
+            if cfg.moe is not None:     # the plan of the blocks gathered
+                gathered = param_blocks(cfg, mesh, Rules(  # over "data"
+                    {**rules.table, "fsdp": None}))
+                self.replicas = mesh.axis_groups("data")
+                self.expert_ranges = _expert_ranges(
+                    [self.blocks["layers.0.moe.w1"][1][r[0]][0]
+                     for r in self.replicas], cfg.moe.num_experts)
+                self.moe_stats: dict[int, dict] = {}
             self.plan = tp_plan(cfg, {n: b for n, (_, b) in
-                                      self.blocks.items()}, self.groups)
+                                      gathered.items()}, self.groups)
             return
         if mesh is not None:
             rules = serve_rules(mesh, cfg)
@@ -274,6 +287,17 @@ class LM(nn.Module):
             return
         for sh, block in zip(self.shards, self.blocks[name][1]):
             sh.get_parameter(name).copy_(full[block_slices(block)])
+
+
+def _expert_ranges(held: list, experts: int) -> list[tuple[int, int]]:
+    """The experts each model coordinate runs, from the experts its
+    shards ``held``: those, where they split ``[0, E)`` in order; else
+    (``"expert"`` unbound, every coordinate holding them all) all on
+    coordinate 0."""
+    ends = [0] + [hi for _, hi in held]
+    if [lo for lo, _ in held] == ends[:-1] and ends[-1] == experts:
+        return list(held)
+    return [(0, experts)] + [(experts, experts)] * (len(held) - 1)
 
 
 def param_blocks(cfg: LMConfig, mesh, rules) -> dict[str, tuple]:
@@ -319,10 +343,11 @@ def lm_init(generator: torch.Generator, cfg: LMConfig,
 
     With ``mesh`` (its home device the generator's), each MoE layer's
     experts are split over it as they are drawn, or with ``rules`` each
-    weight is split into its shards' blocks (:class:`LM`): a whole weight
-    exists only while it is handed out, one at a time, and the weights
-    are bit for bit those of ``lm_init`` without a mesh on the same
-    device (:func:`gathered_state_dict`)."""
+    weight is split into its shards' blocks (:class:`LM`; an MoE's in
+    ``init_moe_``'s order, layer by layer): a whole weight exists only
+    while it is handed out, one at a time, and the weights are bit for
+    bit those of ``lm_init`` without a mesh on the same device
+    (:func:`gathered_state_dict`)."""
     model = LM(cfg, dtype=dtype, device=_home(generator.device, mesh),
                mesh=mesh, rules=rules)
     d, h, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
@@ -342,7 +367,11 @@ def lm_init(generator: torch.Generator, cfg: LMConfig,
     for name, scale in scales.items():  # one weight kind at a time
         for i in range(cfg.n_layers):
             normal(f"layers.{i}.{name}", scale)
-    if cfg.moe is not None:
+    if cfg.moe is not None and model.tensor_parallel:
+        for i in range(cfg.n_layers):   # init_moe_'s draws, layer by layer
+            for name, scale in moe_draws(d, cfg.moe):
+                normal(f"layers.{i}.moe.{name}", scale)
+    elif cfg.moe is not None:
         for blk in model.layers:
             init_moe_(blk.moe, generator)
     for name, p in model.named_parameters():
@@ -384,7 +413,13 @@ def lm_from_numpy(params: dict, cfg: LMConfig, *,
             norm = name in ("ln1", "ln2", "q_norm", "k_norm")
             put(f"layers.{i}.{name}" + (".weight" if norm else ""),
                 lay[name][i])
-        if cfg.moe is not None:
+        if cfg.moe is not None and model.tensor_parallel:
+            for name, _ in moe_draws(cfg.d_model, cfg.moe):
+                node = lay["moe"]
+                for key in name.split("."):
+                    node = node[key]
+                put(f"layers.{i}.moe.{name}", node[i])
+        elif cfg.moe is not None:
             layer_moe = {k: v[i] for k, v in lay["moe"].items()
                          if k != "shared"}
             if cfg.moe.n_shared:

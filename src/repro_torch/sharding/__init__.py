@@ -17,9 +17,11 @@ arrays out by them, each device's block given by :func:`device_blocks`
 (the blocks ``NamedSharding.devices_indices_map`` gives in the
 reference): an LM's MoE on a mesh holds each shard's block of the expert
 axis (:func:`block_ranges` of the dispatch buffer's spec;
-:mod:`repro_torch.models.moe`), and a dense LM trained over a ``("data",
+:mod:`repro_torch.models.moe`), and an LM trained over a ``("data",
 "model")`` mesh holds each device's block of every weight and of its
-optimizer state (:mod:`repro_torch.models.tensor_parallel`).
+optimizer state (:mod:`repro_torch.models.tensor_parallel` for a dense
+one, :mod:`repro_torch.models.fsdp` for an MoE, whose 4-D expert weights
+and router take their blocks the same way).
 """
 from __future__ import annotations
 
@@ -103,10 +105,11 @@ def make_shard_fn(mesh, rules: Rules):
     on a mesh holds each shard's experts on that shard's device and moves
     the dispatch buffer's rows to them and back
     (:func:`repro_torch.models.moe.moe_experts`), by the ranges that
-    :func:`block_ranges` gives for the constraint's spec; a dense LM on a
+    :func:`block_ranges` gives for the constraint's spec; an LM on a
     train mesh holds each device's :func:`device_blocks` and moves
-    activations between them itself
-    (:mod:`repro_torch.models.tensor_parallel`)."""
+    activations (and, under full FSDP, weights) between them itself
+    (:mod:`repro_torch.models.tensor_parallel`,
+    :mod:`repro_torch.models.fsdp`)."""
     return lambda x, *names: x
 
 

@@ -24,8 +24,10 @@ returns).
 
 On a mesh the same update runs on each shard's blocks (``update``'s
 ``(shard, name)`` keys, :func:`repro_torch.configs.lm_common.train_step`):
-the ZeRO-1 step of the reference's dense ``train_4k`` cell, each shard
-updating its block of the FSDP layout with its own mu and nu.
+each shard updates its block of the FSDP layout with its own mu and nu —
+the ZeRO-1 step of the reference's dense ``train_4k`` cell, or the full
+FSDP one of its MoE cell, where that block is the shard's whole weight
+block.
 
 The int8 error-feedback gradient compression (:func:`compress_int8`,
 :func:`compressed_grad_tree` and their inverses) is the reference's: as

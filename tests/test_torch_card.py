@@ -1179,3 +1179,80 @@ def test_tp_train_on_four_cards(four_cards, model):
     assert four[0] == one[0]
     for x, y in ((four[1], one[1]), (four[2], one[2])):
         assert all(torch.equal(x[k], y[k]) for k in x)
+
+
+def _fsdp_moe_run(mesh, card, steps: int = 2):
+    """deepseek-moe-16b's smoke reduction in fp32, ``lm_init`` from seed 0
+    on the CPU and copied onto the card (``mesh``'s shards, by the
+    reference's full FSDP; world 1 without a mesh), ``steps`` steps of the
+    ``train_4k`` cell (B 16, 64 positions, micro 4) on batches drawn on
+    the CPU from seed 1 (their smallest gap between a token's k-th and
+    (k+1)-th router probabilities is 1.8e-5 on the CPU: far above the
+    card's fp32 rounding): ``(losses, gathered weights, gathered mu,
+    model)``."""
+    from repro_torch.configs import LM_ARCHS, lm_common
+    from repro_torch.models import transformer as tf
+    cfg = lm_common.smoke_config(LM_ARCHS["deepseek-moe-16b"])
+    one = tf.lm_init(torch.Generator().manual_seed(0), cfg)
+    if mesh is None:
+        lm = one.to(card)
+    else:
+        lm = tf.LM(cfg, device=mesh.devices[0], mesh=mesh,
+                   rules=lm_common.train_rules(mesh, cfg))
+        for name, p in one.named_parameters():
+            lm.load_full(name, p.detach().to(card))
+    opt = lm_common.train_optimizer()
+    state = opt.init(lm_common.zero1_params(lm) if mesh is not None
+                     else dict(lm.named_parameters()))
+    toks = torch.randint(0, cfg.vocab, (steps, 2, 16, 64),
+                         generator=torch.Generator().manual_seed(1)).to(card)
+    losses = []
+    for t in range(steps):
+        state, loss = lm_common.train_step(
+            lm, opt, state, {"tokens": toks[t, 0], "targets": toks[t, 1]},
+            cfg, micro=4, chunks=lm_common.SMOKE_CHUNKS)
+        losses.append(loss.item())
+    if mesh is None:
+        return losses, tf.gathered_state_dict(lm), dict(state.mu), lm
+    return (losses, tf.gathered_state_dict(lm),
+            lm_common.gathered_opt_state(lm, state)["mu"], lm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", [4, 2, 1])
+def test_fsdp_moe_train_on_logical_shards_matches_world_1(card, model):
+    """Four logical shards on card 0 at (4 / model, model): two runs give
+    the same bits (losses, weights, mu), and they follow world 1 on the
+    card: each loss within 1e-5, the gathered mu within 1e-4 of its norm
+    (fp32; the card's sums in other orders; limits set before the card
+    ran it)."""
+    mesh = _on_card0(model)
+    a, b = _fsdp_moe_run(mesh, card), _fsdp_moe_run(mesh, card)
+    assert a[0] == b[0]
+    for x, y in ((a[1], b[1]), (a[2], b[2])):
+        assert all(torch.equal(x[k], y[k]) for k in x)
+    one = _fsdp_moe_run(None, card)
+    assert max(abs(p - q) for p, q in zip(a[0], one[0])) <= 1e-5
+    num = sum(float(((a[2][k].cpu() - one[2][k].cpu()) ** 2).sum())
+              for k in one[2])
+    den = sum(float((one[2][k].cpu() ** 2).sum()) for k in one[2])
+    assert (num / den) ** 0.5 <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", [4, 2, 1])
+def test_fsdp_moe_on_four_cards(four_cards, model):
+    """deepseek-moe-16b's smoke reduction by full FSDP, one shard a card,
+    against four logical shards on card 0: the same bits (losses, weights,
+    mu), every shard's blocks on its card."""
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(4, model=model, device="cuda")
+    assert [d.index for d in mesh.devices] == [0, 1, 2, 3]
+    four = _fsdp_moe_run(mesh, four_cards)
+    for i, sh in enumerate(four[3].shards):
+        assert all(p.device == torch.device("cuda", i)
+                   for p in sh.parameters())
+    one = _fsdp_moe_run(_on_card0(model), four_cards)
+    assert four[0] == one[0]
+    for x, y in ((four[1], one[1]), (four[2], one[2])):
+        assert all(torch.equal(x[k], y[k]) for k in x)

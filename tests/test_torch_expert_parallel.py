@@ -406,7 +406,8 @@ def test_serve_placement_bytes_in_closed_form():
 def test_launcher_checks_each_card(capsys):
     """phi3.5 at W 1 keeps its refusal and names the smallest world; at W 3
     its experts do not divide, so all land on the home card, refused; W 2
-    and W 4 serve. ``--mesh-world`` splits only an MoE, and only serves."""
+    and W 4 serve. Serving, ``--mesh-world`` splits only an MoE; with
+    ``--shape train_4k`` it lays out the train mesh, an MoE's too."""
     def refused(argv):
         with pytest.raises(SystemExit) as exc:
             launcher.parse_args(argv)
@@ -424,9 +425,10 @@ def test_launcher_checks_each_card(capsys):
                                     "--mesh-world", str(world)])
         assert args.mesh_world == world
     assert "has none" in refused(["--mesh-world", "2"])
-    assert "serves only" in refused(["--shape", "train_4k", "--arch",
-                                     "deepseek-moe-16b", "--mesh-world",
-                                     "2", "--smoke"])
+    train = launcher.parse_args(["--shape", "train_4k", "--arch",
+                                 "deepseek-moe-16b", "--mesh-world", "2",
+                                 "--smoke"])
+    assert (train.mesh_world, train.model) == (2, 2)
     assert "--layers 0 outside 1..32" in refused(
         ["--arch", "phi3.5-moe-42b", "--layers", "0", "--mesh-world", "4"])
     assert launcher.parse_args(["--arch", "phi3.5-moe-42b", "--layers",

@@ -434,16 +434,48 @@ def test_launcher_trains_smoke_on_cpu(capsys):
     assert '"shape": "train_4k"' in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("arch,gb", [("codeqwen1.5-7b", "131.0"),
-                                     ("deepseek-moe-16b", "270.1"),
-                                     ("phi3.5-moe-42b", "670.0")])
-def test_launcher_refuses_train_state_beyond_one_card(arch, gb, capsys):
+@pytest.mark.parametrize("arch,gb,world", [("codeqwen1.5-7b", "131.0", 2),
+                                           ("deepseek-moe-16b", "270.1", 4),
+                                           ("phi3.5-moe-42b", "670.0", 16)])
+def test_launcher_refuses_train_state_beyond_one_card(arch, gb, world,
+                                                      capsys):
+    """World 1 is refused, naming the rule that splits the state (ZeRO-1,
+    ROADMAP A10b; an MoE's full FSDP) and the smallest ``--mesh-world``
+    that fits, one shard a card."""
     with pytest.raises(SystemExit) as e:
         launcher.parse_args(["--shape", "train_4k", "--arch", arch])
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert f"{gb} GB of fp32 train state" in err
-    assert ("A13" if "moe" in arch else "A10b") in err
+    assert ("full FSDP" if "moe" in arch else "A10b") in err
+    assert f"one shard a card, is --mesh-world {world}\n" in err
+
+
+def test_launcher_trains_an_moe_on_a_mesh_on_the_cpu():
+    """``--arch deepseek-moe-16b --smoke --mesh-world 4 --model 2`` trains
+    on the CPU: finite losses, the stages without a ZeRO-1 gather, each
+    shard's bytes as planned, and each step's router stats with kept +
+    dropped = T·k in every layer and no load over the capacity."""
+    report = launcher.main(["--arch", "deepseek-moe-16b", "--shape",
+                            "train_4k", "--smoke", "--device", "cpu",
+                            "--steps", "2", "--mesh-world", "4", "--model",
+                            "2"])
+    assert (report["data"], report["model"], report["batch"],
+            report["micro"]) == (2, 2, 2, 1)
+    assert all(np.isfinite(x) for x in report["losses"])
+    assert set(report["stage_ms"][0]) == {"forward", "backward",
+                                          "data_sum", "optimizer"}
+    sb = report["shard_bytes"]
+    assert sb["weights"] == sb["planned_weights"]
+    assert sb["state"] == sb["planned_state"]
+    (card,) = report["cards"]
+    assert card["working_bytes"] > 0
+    for step in report["moe"]:
+        assert step["assignments"] == 2 * 64 * 2
+        for load, dropped in zip(step["expert_load_by_layer"],
+                                 step["dropped_by_layer"]):
+            assert sum(load) + dropped == step["assignments"]
+            assert max(load) <= step["capacity"]
 
 
 def test_train_cell_is_what_the_launcher_trains():

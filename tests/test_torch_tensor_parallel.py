@@ -328,11 +328,16 @@ def test_lm_from_numpy_and_lm_init_on_a_mesh_gather_back_bitwise(ref, arch):
 
 
 def test_a_tensor_parallel_lm_is_dense():
+    """The tensor-parallel plan takes a dense arch's ZeRO-1 blocks; an
+    MoE on a train mesh holds its full-FSDP blocks and takes the plan of
+    the blocks gathered over ``"data"``; a dense arch under full FSDP is
+    refused."""
     mesh = _mesh(2)
     cfg = _smoke("deepseek-moe-16b")
-    with pytest.raises(ValueError, match="dense"):
-        transformer.LM(cfg, device="cpu", mesh=mesh,
-                       rules=lm_common.train_rules(mesh, cfg))
+    moe = transformer.LM(cfg, device="cpu", mesh=mesh,
+                         rules=lm_common.train_rules(mesh, cfg))
+    assert moe.shards[0].layers[0].wq.shape == (32, 32)
+    assert moe.plan.shards[1].heads == (2, 4)
     qwen = _smoke("qwen3-4b")
     fsdp = lm_common.lm_rules(mesh, "train_4k", qwen)
     with pytest.raises(ValueError, match="ZeRO-1"):
@@ -473,8 +478,9 @@ def _refused(argv, capsys) -> str:
 def test_launcher_checks_each_card_of_a_train_mesh(capsys):
     """codeqwen1.5-7b: ``--mesh-world 4`` (model 4) passes at 32.76 GB a
     card; ``--model 1`` is refused at 81.90 GB, naming ``--model 2``;
-    world 1 is refused naming A10b and the smallest mesh; an MoE keeps
-    its refusals; the micro-batches must split over ``"data"``."""
+    world 1 is refused naming A10b and the smallest mesh; phi3.5-moe-42b
+    does not fit four cards and is refused naming the sixteen it needs;
+    the micro-batches must split over ``"data"``."""
     base = ["--shape", "train_4k", "--arch", "codeqwen1.5-7b"]
     args = launcher.parse_args(base + ["--mesh-world", "4"])
     assert (args.model, args.batch, args.micro) == (4, 1, 1)
@@ -491,8 +497,9 @@ def test_launcher_checks_each_card_of_a_train_mesh(capsys):
     assert "does not split over the data axis of 2" in _refused(
         base + ["--mesh-world", "4", "--model", "2", "--batch", "2",
                 "--micro", "2"], capsys)
-    assert "A13" in _refused(["--shape", "train_4k", "--arch",
-                              "phi3.5-moe-42b", "--mesh-world", "4"], capsys)
+    assert "the smallest --mesh-world that fits, one shard a card, is 16" \
+        in _refused(["--shape", "train_4k", "--arch", "phi3.5-moe-42b",
+                     "--mesh-world", "4"], capsys)
     assert "train_4k mesh" in _refused(["--model", "2"], capsys)
     four = launcher.parse_args(["--shape", "train_4k", "--mesh-world", "4",
                                 "--model", "1", "--smoke"])
