@@ -1,0 +1,7 @@
+"""Median service time of the host executor's batches, submit to done
+(lane queueing and processing; ``ServeMetrics.executor_percentiles``)."""
+
+
+def read(ctx):
+    ex = ctx["summary"].get("executors", {}).get("host")
+    return None if not ex or not ex.get("batches") else ex["p50_ms"]

@@ -1,0 +1,399 @@
+"""CPU tests of the serving benchmark: a tiny cell end to end, the
+reference against the port, the control and the planted faults failing,
+new configurations, mixes and metrics found by name, the import rules,
+and the yardstick's arithmetic. The card's test is marked ``cuda``.
+
+    PYTHONPATH=src python -m pytest -q servebench
+"""
+from __future__ import annotations
+
+import ast
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+BENCH_DIR = Path(__file__).resolve().parent
+ROOT = BENCH_DIR.parent
+for p in (str(ROOT), str(ROOT / "src")):
+    if p not in sys.path:
+        sys.path.insert(0, p)
+
+from servebench import costs, inputs, run  # noqa: E402
+from servebench.reference import sage as ref  # noqa: E402
+
+CPU = torch.device("cpu")
+SEED = 2**31 + 17
+
+
+def _tiny_cfg(collect: str, limits: dict) -> dict:
+    return {"name": "tiny", "nodes": 3000, "num_edges": 30000,
+            "exponent": 1.6, "feat_dim": 16, "hidden": [32, 32],
+            "classes": 8, "fanouts": [4, 3, 2], "dtype": "float32",
+            "collect": collect,
+            "topology": {"rows_per_device": 750, "rows_host": 1500,
+                         "hot_frac": 0.25},
+            "executor": {"max_batch": 64, "lanes": 2, "max_inflight": 64,
+                         "admission": "wait",
+                         "policy": "latency_preferred"},
+            "limits": limits}
+
+
+def _limits(config: str) -> dict:
+    return run.load_json(BENCH_DIR / "configs" / f"{config}.json")["limits"]
+
+
+@pytest.fixture
+def tiny(tmp_path):
+    """A benchmark directory of tiny cells over the real metric readers,
+    and the ``BENCHMARK.json`` naming them."""
+    shutil.copytree(BENCH_DIR / "metrics", tmp_path / "metrics")
+    (tmp_path / "configs").mkdir()
+    (tmp_path / "traffic").mkdir()
+    cfgs = {"tiny": _tiny_cfg("lookup_hops", _limits("products-sage3")),
+            "tinyagg": _tiny_cfg("lookup_aggregate",
+                                 _limits("reddit-sage2"))}
+    for name, cfg in cfgs.items():
+        (tmp_path / "configs" / f"{name}.json").write_text(json.dumps(cfg))
+    mixes = {"tmixed": {"loop": "open", "arrivals": "poisson",
+                        "rate_rps": 25.0,
+                        "sizes": {"law": "log_uniform_int", "lo": 1,
+                                  "hi": 64},
+                        "seed_law": "out_degree", "check_requests": 6},
+             "tbulk": {"loop": "closed", "clients": 4,
+                       "sizes": {"law": "fixed", "n": 64},
+                       "seed_law": "out_degree", "check_requests": 4,
+                       "check_horizon": 8}}
+    for name, mix in mixes.items():
+        (tmp_path / "traffic" / f"{name}.json").write_text(json.dumps(mix))
+    bench = run.load_json(ROOT / "BENCHMARK.json")
+    bench["workloads"] = [
+        {"name": "tiny.mixed", "config": "tiny", "traffic": "tmixed",
+         "chips": 1},
+        {"name": "tiny.bulk", "config": "tinyagg", "traffic": "tbulk",
+         "chips": 1}]
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "workloads" in m:
+            m["workloads"] = (["tiny.mixed"]
+                              if "products-sage3.mixed" in m["workloads"]
+                              else ["tiny.bulk"])
+    return bench, tmp_path
+
+
+def _run(tiny, cell, traced=False, seconds=1.0):
+    bench, bench_dir = tiny
+    return run.run_cell(bench, cell, SEED, seconds, traced, device=CPU,
+                        bench_dir=bench_dir)
+
+
+@pytest.mark.parametrize("cell", ["tiny.mixed", "tiny.bulk"])
+def test_tiny_cell_prints_the_result_line(tiny, cell):
+    line, rows = _run(tiny, cell)
+    assert line["correct"] is True, line["checks"]
+    assert line["failed"] == 0 and line["attempted"] > 0
+    assert list(line)[-1] == "checks"
+    assert {"correct", "attempted", "failed", "metrics",
+            "device"} <= set(line)
+    want = ({"p50_ms", "setup_s"} if cell == "tiny.mixed"
+            else {"seeds_per_s", "setup_s"})
+    assert set(line["metrics"]) == want
+    assert all(m["value"] > 0 for m in line["metrics"].values())
+    assert json.loads(json.dumps(line)) == line
+    assert [r[0] for r in rows] == list(line["checks"])
+
+
+def test_traced_tiny_cell_reports_per_layer_metrics(tiny):
+    line, _ = _run(tiny, "tiny.mixed", traced=True)
+    assert line["correct"] is True
+    # no device on the CPU: only the host-side readers find something
+    # (which executors served depends on the router's calibration)
+    assert {"routed_device_share", "p99_ms.host_paced"} <= \
+        set(line["metrics"])
+    assert set(line["metrics"]) <= {"routed_device_share",
+                                    "p99_ms.host_paced",
+                                    "service_p50_ms.host",
+                                    "service_p50_ms.device",
+                                    "host_sample_ms"}
+    assert "busy_s" not in line["device"]
+
+
+def test_reference_follows_the_port_on_a_small_sample():
+    """The port's GraphSAGE over hops its own samplers drew, against the
+    reference; both samplers' hops obey the reference's rules."""
+    from repro_torch.graph import CSRGraph, device_sample, host_sample_dense
+    from repro_torch.models.gnn_basic import sage_from_numpy, sage_layered
+
+    g = inputs.power_law_graph(2000, 20000, 1.6, SEED, CPU)
+    csr = CSRGraph(indptr=g.indptr, indices=g.indices, num_nodes=g.num_nodes)
+    feats = inputs.features(g.num_nodes, 12, SEED, CPU)
+    w_np = inputs.sage_weights([12, 24, 24, 5], SEED, CPU)
+    fanouts = [5, 4, 3]
+    seeds = np.arange(0, 2000, 97)
+    rg = ref.Graph(g.indptr, g.indices, g.num_nodes, CPU)
+    hops_h = [torch.from_numpy(h) for h in host_sample_dense(
+        np.random.default_rng(1), csr, np.pad(seeds, (0, 11),
+                                              constant_values=-1),
+        fanouts)]
+    hops_d = device_sample(torch.Generator().manual_seed(1),
+                           *csr.device_arrays(CPU),
+                           torch.as_tensor(seeds, dtype=torch.int32),
+                           fanouts)
+    model = sage_from_numpy(w_np, device=CPU)
+    feats_t = torch.from_numpy(feats)
+    w = ref.weights_on(w_np, CPU)
+    for hops in (hops_h, hops_d):
+        assert ref.invalid_hops(rg, hops, torch.as_tensor(seeds),
+                                fanouts) == 0
+        got = sage_layered(model, [ref.rows(feats_t, h) for h in hops],
+                           fanouts, [(h >= 0).float()[:, None] for h in hops])
+        want = ref.embed(w, feats_t, hops, fanouts)
+        assert (got - want).abs().max() < 1e-5
+    # a slot moved to a node that is not a neighbour breaks the rules
+    bad = [h.clone() for h in hops_d]
+    bad[2][7] = (bad[2][7] + 1) % g.num_nodes
+    assert ref.invalid_hops(rg, bad, torch.as_tensor(seeds), fanouts) >= 1
+
+
+def test_the_lower_precision_control_fails(tiny):
+    """The reference in the next precision below (TF32 products, bfloat16
+    sums) in the program's place fails the limits that the program
+    passes."""
+    bench, bench_dir = tiny
+    spec = run.cell_spec(bench, "tiny.bulk", bench_dir)
+    prep = run.prepare(spec["cfg"], spec["traffic"], SEED, CPU)
+    res = run.drive(prep, spec["traffic"], 1.0, SEED)
+    r = run.answers(prep, res, CPU, control=True)
+    lim = spec["cfg"]["limits"]
+    assert r["embed_err"] <= lim["embed_err"] < r["control_embed_err"]
+    assert r["agg_err"] <= lim["agg_err"] < r["control_agg_err"]
+
+
+def _alter_answer(monkeypatch):
+    from repro_torch.models import gnn_basic
+    real = gnn_basic.sage_layered
+
+    def altered(*a, **kw):
+        out = real(*a, **kw)
+        return torch.cat([out[:1] + 1e-2, out[1:]])
+    monkeypatch.setattr(gnn_basic, "sage_layered", altered)
+
+
+def _half_the_neighbours(monkeypatch):
+    from repro_torch.models import gnn_basic
+    real = gnn_basic.fan_sum
+
+    def half(x):
+        keep = max(x.shape[1] // 2, 1)
+        return real(x[:, :keep]) * (x.shape[1] / keep)
+    monkeypatch.setattr(gnn_basic, "fan_sum", half)
+
+
+def _bad_sample(monkeypatch):
+    from repro_torch.serving import executors
+    real = executors.device_sample
+    real_h = executors.host_sample_dense
+
+    def moved(hops):
+        last = hops[-1]
+        last[0] = 0 if int(last[0]) != 0 else 1
+        return hops
+    monkeypatch.setattr(executors, "device_sample",
+                        lambda *a: moved(real(*a)))
+    monkeypatch.setattr(executors, "host_sample_dense",
+                        lambda *a: moved(real_h(*a)))
+
+
+def _bad_rows(monkeypatch):
+    from repro_torch.core import feature_store
+    real = feature_store.tiered_gather
+
+    def shifted(tier, slot, hot, warm):
+        return real(tier, slot, hot, warm) + 0.5
+    monkeypatch.setattr(feature_store, "tiered_gather", shifted)
+
+
+@pytest.mark.parametrize("fault,number", [
+    (_alter_answer, "embed_err"),
+    (_half_the_neighbours, "embed_err"),
+    (_bad_sample, "hops_invalid"),
+    (_bad_rows, "feature_mismatch")])
+def test_a_planted_fault_makes_the_run_incorrect(tiny, monkeypatch, fault,
+                                                 number):
+    fault(monkeypatch)
+    line, rows = _run(tiny, "tiny.mixed")
+    assert line["correct"] is False
+    failed = {n for n, v, lim in rows if v > lim}
+    assert number in failed, line["checks"]
+
+
+def test_new_files_are_found_by_name(tiny, tmp_path):
+    """A configuration, a mix and a per-layer metric added as files (and
+    entries of BENCHMARK.json) run with no edit of the harness."""
+    bench, bench_dir = tiny
+    cfg = _tiny_cfg("lookup_hops", _limits("products-sage3"))
+    cfg.update(nodes=2500, fanouts=[3, 2], hidden=[16])
+    (bench_dir / "configs" / "newcfg.json").write_text(json.dumps(cfg))
+    (bench_dir / "traffic" / "small.json").write_text(json.dumps(
+        {"loop": "open", "arrivals": "poisson", "rate_rps": 20.0,
+         "sizes": {"law": "log_uniform_int", "lo": 1, "hi": 8},
+         "seed_law": "out_degree", "check_requests": 4}))
+    (bench_dir / "metrics" / "answered_share.py").write_text(
+        "def read(ctx):\n"
+        "    lat = ctx['latencies_ms']\n"
+        "    return 100.0 * float((lat < float('inf')).mean())\n")
+    bench["workloads"].append({"name": "newcfg.small", "config": "newcfg",
+                               "traffic": "small", "chips": 1})
+    bench["end_to_end"][0]["workloads"].append("newcfg.small")
+    bench["per_layer"].append({"name": "answered_share", "unit": "%",
+                               "better": "higher", "source": "host_clock",
+                               "layer": "engine and executors",
+                               "moves": "p50_ms",
+                               "workloads": ["newcfg.small"]})
+    line, _ = run.run_cell(bench, "newcfg.small", SEED, 1.0, True,
+                           device=CPU, bench_dir=bench_dir)
+    assert line["correct"] is True
+    assert line["metrics"]["answered_share"]["value"] == 100.0
+
+
+def _imports(path: Path) -> set:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+    return names
+
+
+def test_nothing_imports_jax_or_the_jax_package():
+    """Top-level names compared whole: ``repro_torch`` is allowed in the
+    harness, ``repro`` nowhere; the reference imports nothing of the
+    program. A run in a fresh process loads none of them either."""
+    for path in BENCH_DIR.rglob("*.py"):
+        names = _imports(path)
+        assert not names & set(run.FORBIDDEN), path
+        if "reference" in path.parts:
+            assert "repro_torch" not in names, path
+    code = (
+        "import sys, json, torch\n"
+        f"sys.path[:0] = [{str(ROOT)!r}, {str(ROOT / 'src')!r}]\n"
+        "from servebench import run\n"
+        "b = run.load_json(run.ROOT / 'BENCHMARK.json')\n"
+        "spec = run.cell_spec(b, 'products-sage3.mixed', run.BENCH_DIR)\n"
+        "cfg = dict(spec['cfg'], nodes=1500, num_edges=9000, feat_dim=8,\n"
+        "           hidden=[8], classes=4, fanouts=[3, 2],\n"
+        "           topology=dict(rows_per_device=400, rows_host=700,\n"
+        "                         hot_frac=0.25),\n"
+        "           executor=dict(spec['cfg']['executor'], max_batch=16))\n"
+        "tr = dict(spec['traffic'], sizes=dict(law='fixed', n=4))\n"
+        "p = run.prepare(cfg, tr, 5, torch.device('cpu'))\n"
+        "res = run.drive(p, dict(tr, rate_rps=20.0), 0.3, 5)\n"
+        "run.answers(p, res, torch.device('cpu'))\n"
+        "print(json.dumps(run.forbidden_modules()))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_the_harness_refuses_without_the_program_or_a_card(tmp_path):
+    """In a directory that holds only BENCHMARK.json and the benchmark's
+    files it exits 2 and prints no result."""
+    shutil.copytree(BENCH_DIR, tmp_path / "servebench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    out = subprocess.run(
+        [sys.executable, "servebench/run.py", "--workload",
+         "products-sage3.mixed", "--seed", str(SEED), "--seconds", "1",
+         "--trace", "0"], capture_output=True, text=True, timeout=120,
+        cwd=tmp_path)
+    assert out.returncode == 2
+    assert out.stdout.strip() == ""
+
+
+def test_flops_a_seed_match_the_hand_worked_counts():
+    assert costs.sage_flops_per_seed([100, 256, 256, 47],
+                                     [15, 10, 5]) == 21_378_412
+    assert costs.sage_flops_per_seed([602, 256, 41], [25, 10]) == 16_241_582
+
+
+def test_kernel_costs_count_distinct_rows_once():
+    assert costs.tiered_gather_cost(10, 4, 4, read_rows=3) == {
+        "flops": 0, "bytes": 8 * 10 + 3 * 16 + 10 * 16}
+    assert costs.gather_aggregate_cost(2, 5, 4, 4, read_rows=6,
+                                       valid=8) == {
+        "flops": 32, "bytes": 8 * 10 + 6 * 16 + 2 * 16}
+    hot = torch.zeros(8, 4)
+    tier = torch.tensor([0, 0, 1, 1, 2, 0], dtype=torch.int32)
+    slot = torch.tensor([3, 3, 3, 1, 5, 0], dtype=torch.int32)
+    # distinct device rows (0,3), (1,3), (1,1), (0,0); tier 2 reads none
+    assert costs.tiered_gather_bytes(tier, slot, hot, hot) == \
+        8 * 6 + 4 * 16 + 6 * 16
+    seg_t = torch.tensor([[0, 2, 99], [2, 2, 1]], dtype=torch.int32)
+    seg_s = torch.tensor([[1, 0, 0], [0, 1, 1]], dtype=torch.int32)
+    # valid children 5, distinct rows (0,1), (2,0), (2,1), (1,1)
+    assert costs.gather_aggregate_bytes(seg_t, seg_s, hot, hot, hot) == \
+        8 * 6 + 4 * 16 + 2 * 16
+
+
+def test_every_seed_gets_the_same_sizes_and_gaps():
+    law = inputs.SeedLaw(np.arange(1, 101), "out_degree")
+    mix = {"rate_rps": 30.0, "arrivals": "poisson",
+           "sizes": {"law": "log_uniform_int", "lo": 1, "hi": 1024}}
+    a = inputs.open_schedule(mix, law, 10.0, 1, 8)
+    b = inputs.open_schedule(mix, law, 10.0, 2**31 + 3, 8)
+    assert sorted(map(len, a.seeds)) == sorted(map(len, b.seeds))
+    assert len(a.seeds) == len(b.seeds) == 300
+    assert (np.diff(a.due) > 0).all() and 9.0 < a.due[-1] < 10.0
+    big = int(np.argmax([len(s) for s in a.seeds]))
+    assert big in a.checked and len(a.checked) == 8
+
+
+def test_the_graph_law_is_drawn_from_the_seed():
+    g1 = inputs.power_law_graph(3000, 30000, 1.6, 7, CPU)
+    g2 = inputs.power_law_graph(3000, 30000, 1.6, 7, CPU)
+    assert np.array_equal(g1.indices, g2.indices)
+    src = np.repeat(np.arange(3000), g1.out_degree)
+    assert not (src == g1.indices).any()
+    assert 29000 < g1.num_edges <= 30000
+    # zipf-ranked popularity: the most popular target takes a large share
+    assert np.bincount(g1.indices).max() > 0.2 * g1.num_edges
+
+
+def test_every_seed_gets_the_same_out_degrees():
+    g1 = inputs.power_law_graph(3000, 30000, 1.6, 7, CPU)
+    g2 = inputs.power_law_graph(3000, 30000, 1.6, 2**31 + 5, CPU)
+    d1, d2 = inputs.out_degrees(3000, 30000), g1.out_degree
+    assert d1.sum() >= 30000 and (d1 >= 1).all()
+    # the multiset is fixed; only self loops, dropped, tell the seeds apart
+    assert abs(np.sort(d2) - np.sort(d1)).sum() <= d1.sum() - g1.num_edges
+    assert not np.array_equal(g1.out_degree, g2.out_degree)
+    assert abs(g1.num_edges - g2.num_edges) < 100
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [5001, 5002, 5003])
+def test_control_fails_on_the_card_at_the_cell_size(card, seed):
+    """reddit-sage2.bulk at its own size on the card: the program's
+    readings pass their limits, the lower-precision control fails them."""
+    spec = run.cell_spec(run.load_json(ROOT / "BENCHMARK.json"),
+                         "reddit-sage2.bulk", BENCH_DIR)
+    prep = run.prepare(spec["cfg"], spec["traffic"], seed, card)
+    res = run.drive(prep, spec["traffic"], 4.0, seed)
+    r = run.answers(prep, res, card, control=True)
+    lim = spec["cfg"]["limits"]
+    assert r["hops_invalid"] == 0 and r["feature_mismatch"] == 0
+    assert r["embed_err"] <= lim["embed_err"] < r["control_embed_err"]
+    assert r["agg_err"] <= lim["agg_err"] < r["control_agg_err"]
