@@ -52,7 +52,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, trace
 from repro_torch.core.placement import (PlacementPlan, TIER_DISK, TIER_HOST,
                                         TIER_HOT, TIER_NAMES, TIER_WARM)
 from repro_torch.graph.sampler import fixed_size_unique
@@ -407,18 +407,21 @@ class TieredFeatureStore:
         Raises:
             ValueError: every hop is empty.
         """
-        hops_t = [self._ids(h) for h in hops]
-        sizes = [int(h.shape[0]) for h in hops_t]
-        total = sum(sizes)
-        if total == 0:
-            raise ValueError("lookup_hops needs at least one non-empty hop")
-        snap = self._snapshot()
-        self._count(fused_calls=1)
-        ids = torch.cat(hops_t)
-        uniq, inv = fixed_size_unique(ids, total)
-        rows = self._cached_unique(uniq, include_host, snap, fused=True)
-        out = torch.where((ids >= 0)[:, None], rows[inv.long()], 0.0)
-        return list(torch.split(out, sizes))
+        with trace.span("lookup_hops"):
+            hops_t = [self._ids(h) for h in hops]
+            sizes = [int(h.shape[0]) for h in hops_t]
+            total = sum(sizes)
+            if total == 0:
+                raise ValueError(
+                    "lookup_hops needs at least one non-empty hop")
+            snap = self._snapshot()
+            self._count(fused_calls=1)
+            ids = torch.cat(hops_t)
+            with trace.span("dedup"):
+                uniq, inv = fixed_size_unique(ids, total)
+            rows = self._cached_unique(uniq, include_host, snap, fused=True)
+            out = torch.where((ids >= 0)[:, None], rows[inv.long()], 0.0)
+            return list(torch.split(out, sizes))
 
     def lookup_aggregate(self, hops: Sequence, *, include_host: bool = True
                          ) -> tuple[list[torch.Tensor], torch.Tensor]:
@@ -450,28 +453,54 @@ class TieredFeatureStore:
             ValueError: fewer than two hops, or the innermost hop is not a
                 whole multiple of the previous one.
         """
-        hops_t = [self._ids(h) for h in hops]
-        sizes = [int(h.shape[0]) for h in hops_t]
-        if len(hops_t) < 2:
-            raise ValueError(
-                "lookup_aggregate needs seeds plus at least one frontier")
-        p, n_inner = sizes[-2], sizes[-1]
-        if p == 0 or n_inner == 0 or n_inner % p:
-            raise ValueError(
-                "innermost hop must be a (P*fan,) frontier of the previous "
-                f"hop, got sizes {sizes[-2:]}")
-        fan = n_inner // p
-        total = sum(sizes)
-        n_outer = total - n_inner
-        snap = self._snapshot()
-        hot, warm = snap[0], snap[1]
-        tier_tab, slot_tab = snap[6], snap[7]
-        self._count(fused_calls=1, fused_aggregates=1)
-        ids = torch.cat(hops_t)
-        uniq, inv = fixed_size_unique(ids, total)
-        # one device→host copy for everything the host-side address
-        # resolution needs
-        host_view = torch.cat([uniq, inv, hops_t[-1]]).cpu().numpy()
+        with trace.span("lookup_aggregate"):
+            hops_t = [self._ids(h) for h in hops]
+            sizes = [int(h.shape[0]) for h in hops_t]
+            if len(hops_t) < 2:
+                raise ValueError(
+                    "lookup_aggregate needs seeds plus at least one frontier")
+            p, n_inner = sizes[-2], sizes[-1]
+            if p == 0 or n_inner == 0 or n_inner % p:
+                raise ValueError(
+                    "innermost hop must be a (P*fan,) frontier of the "
+                    f"previous hop, got sizes {sizes[-2:]}")
+            fan = n_inner // p
+            total = sum(sizes)
+            n_outer = total - n_inner
+            snap = self._snapshot()
+            hot, warm = snap[0], snap[1]
+            self._count(fused_calls=1, fused_aggregates=1)
+            ids = torch.cat(hops_t)
+            with trace.span("dedup"):
+                uniq, inv = fixed_size_unique(ids, total)
+            # one device→host copy for everything the host-side address
+            # resolution needs
+            with trace.span("ids_to_host"):
+                host_view = torch.cat([uniq, inv, hops_t[-1]]).cpu().numpy()
+            with trace.span("resolve"):
+                seg, cold_buf = self._segment_plan(
+                    host_view, total, n_outer, p, fan, include_host, snap)
+            with trace.span("plan_to_device"):
+                seg_t = torch.from_numpy(seg).to(self.device)
+            self._count(device_gathers=1)
+            with trace.span("gather"):
+                out = gather_aggregate(seg_t[0], seg_t[1], hot, warm,
+                                       cold_buf)
+            if trace.on:
+                trace.count("gather_rows", int(seg[0].size))
+                trace.count("gather_rows_valid", (seg_t[0] != 99).sum())
+            outer_rows = torch.where((ids[:n_outer] >= 0)[:, None],
+                                     out[:total][inv[:n_outer].long()], 0.0)
+            return list(torch.split(outer_rows, sizes[:-1])), out[total:]
+
+    def _segment_plan(self, host_view: np.ndarray, total: int, n_outer: int,
+                      p: int, fan: int, include_host: bool, snap: tuple
+                      ) -> tuple[np.ndarray, torch.Tensor]:
+        """:meth:`lookup_aggregate`'s host side: ``(seg, cold_buf)``, the
+        ``(2, total + p, fan)`` tier/slot plan of ``gather_aggregate`` and
+        the side table of cold rows (tier 2), from ``host_view`` (the unique
+        ids, the inverse and the innermost hop, copied to the host)."""
+        hot, tier_tab, slot_tab = snap[0], snap[6], snap[7]
         uniq_np = host_view[:total]
         inv_inner = host_view[total + n_outer:2 * total]
         inner_np = host_view[2 * total:]
@@ -509,12 +538,7 @@ class TieredFeatureStore:
                                   ktier[inv_inner]).reshape(p, fan)
         seg[1, total:] = np.where(inner_np < 0, 0,
                                   kslot[inv_inner]).reshape(p, fan)
-        seg_t = torch.from_numpy(seg).to(self.device)
-        self._count(device_gathers=1)
-        out = gather_aggregate(seg_t[0], seg_t[1], hot, warm, cold_buf)
-        outer_rows = torch.where((ids[:n_outer] >= 0)[:, None],
-                                 out[:total][inv[:n_outer].long()], 0.0)
-        return list(torch.split(outer_rows, sizes[:-1])), out[total:]
+        return seg, cold_buf
 
     # -- tier paths ------------------------------------------------------------
     def _cached_unique(self, uniq: Optional[torch.Tensor],
@@ -541,7 +565,8 @@ class TieredFeatureStore:
         else:
             tier_path = self._fused_unique if fused else self._lookup_unique
         if include_host and uniq_np is None:
-            uniq_np = uniq.cpu().numpy()
+            with trace.span("ids_to_host"):
+                uniq_np = uniq.cpu().numpy()
         # a single reference read: any published cache (or None) is valid,
         # cached rows being copies of the feature values
         cache = self.cache  # quiverlint: disable=lock-discipline atomic reference read, any snapshot valid
@@ -589,11 +614,17 @@ class TieredFeatureStore:
         span = max(int(hot.shape[0]), int(warm.shape[0]), 1)
         key = tier * span + slot.clamp_max(span - 1)
         order = torch.argsort(key, stable=True)
-        dev_sorted = tiered_gather(tier[order], slot[order], hot, warm)
+        tier_s, slot_s = tier[order], slot[order]
+        with trace.span("gather"):
+            dev_sorted = tiered_gather(tier_s, slot_s, hot, warm)
+        if trace.on:
+            trace.count("gather_rows", int(uniq.shape[0]))
+            trace.count("gather_rows_valid", (uniq >= 0).sum())
         out = torch.empty_like(dev_sorted)
         out[order] = dev_sorted
         if include_host:
-            out = self._resolve_cold(uniq_np, out, snap)
+            with trace.span("resolve"):
+                out = self._resolve_cold(uniq_np, out, snap)
         return torch.where((uniq >= 0)[:, None], out, 0.0)
 
     def _cold_unique(self, uniq: Optional[torch.Tensor], uniq_np: np.ndarray,
@@ -688,13 +719,14 @@ class TieredFeatureStore:
         """The one host→device gateway for cold rows: a numpy gather from
         the HOST and DISK tiers, address-sorted by slot (the paper's TLB
         optimization), then one copy to the device. Returns ``(K, d)``."""
-        out = np.zeros((tier_np.shape[0], self.feat_dim), host.dtype)
-        for t, store in ((TIER_HOST, host), (TIER_DISK, disk)):
-            idx = np.flatnonzero(tier_np == t)
-            if idx.size:
-                order = np.argsort(slot_np[idx], kind="stable")
-                out[idx[order]] = store[slot_np[idx][order]]
-        return torch.from_numpy(out).to(self.device)
+        with trace.span("host_fetch"):
+            out = np.zeros((tier_np.shape[0], self.feat_dim), host.dtype)
+            for t, store in ((TIER_HOST, host), (TIER_DISK, disk)):
+                idx = np.flatnonzero(tier_np == t)
+                if idx.size:
+                    order = np.argsort(slot_np[idx], kind="stable")
+                    out[idx[order]] = store[slot_np[idx][order]]
+            return torch.from_numpy(out).to(self.device)
 
     # -- prefetch staging ------------------------------------------------------
     def publish_stage(self, stage_slot: Optional[np.ndarray],

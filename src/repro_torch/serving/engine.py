@@ -25,6 +25,7 @@ from typing import Any, Callable, Iterable, Mapping, Optional, Sequence
 
 import numpy as np
 
+from repro_torch import trace
 from repro_torch.serving.executors import Executor
 from repro_torch.serving.registry import DEFAULT_MODEL, ModelEntry, ModelRegistry
 
@@ -462,7 +463,10 @@ class ServingEngine:
             raise ValueError("submit_batch needs a non-empty batch")
         model = _batch_model(batch)
         entry = self.registry.get(model)
-        if not self._window.acquire(blocking=self.admission == "wait"):
+        with trace.span("admit"):
+            admitted = self._window.acquire(
+                blocking=self.admission == "wait")
+        if not admitted:
             self.record_shed(batch, model)
             return None
         with self._lock:         # bind this run: stragglers from a failed
@@ -474,7 +478,10 @@ class ServingEngine:
             # route only admitted batches, so router.routed matches executed
             # work and load-aware estimates see post-admission inflight
             seeds = _batch_seeds(batch)
-            name = entry.router.route(seeds)
+            with trace.span("route"):
+                name = entry.router.route(seeds)
+                if trace.on:
+                    trace.note(executor=name, batch=trace.new_batch())
             submitted_at = self.clock()
             fut = entry.executors[name].submit(seeds)
         except BaseException:

@@ -15,6 +15,7 @@ Every executor owns ``capacity`` worker lanes (threads) and exposes
 from __future__ import annotations
 
 import threading
+import time
 import warnings
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, Optional, Protocol, Sequence, runtime_checkable
@@ -22,7 +23,7 @@ from typing import Callable, Optional, Protocol, Sequence, runtime_checkable
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, trace
 from repro_torch.graph.sampler import (device_sample, hop_from_uniform,
                                        host_sample_dense)
 
@@ -146,9 +147,10 @@ class BaseExecutor:
 
     def _infer(self, store, hops) -> torch.Tensor:
         hop_feats, deep_agg = self._collect(store, hops)
-        if deep_agg is not None:
-            return self.infer_fn(hop_feats, hops, deep_agg=deep_agg)
-        return self.infer_fn(hop_feats, hops)
+        with trace.span("model"):
+            if deep_agg is not None:
+                return self.infer_fn(hop_feats, hops, deep_agg=deep_agg)
+            return self.infer_fn(hop_feats, hops)
 
     def collect_mode(self, store) -> str:
         """The feature-collection path :meth:`_collect` takes for ``store``
@@ -175,17 +177,29 @@ class BaseExecutor:
         """Synchronous path: process, then wait for the device."""
         out = self.process(np.asarray(seeds))
         if out.is_cuda:
-            torch.cuda.current_stream(out.device).synchronize()
+            with trace.span("sync"):
+                torch.cuda.current_stream(out.device).synchronize()
         return out
 
     def submit(self, seeds: np.ndarray) -> Future:
         """Enqueue a batch on a worker lane; resolves to the output of
-        :meth:`run`."""
+        :meth:`run`. Traced, the lane records how long the batch waited
+        for it (``lane_wait``) and its whole run (``lane``)."""
         with self._lock:
             self._inflight += 1
-        fut = self._pool.submit(self.run, seeds)
+        if trace.on:
+            fut = self._pool.submit(self._lane, seeds,
+                                    time.perf_counter_ns(), trace.batch())
+        else:
+            fut = self._pool.submit(self.run, seeds)
         fut.add_done_callback(self._one_done)
         return fut
+
+    def _lane(self, seeds: np.ndarray, t_submit: int,
+              batch: Optional[int]) -> torch.Tensor:
+        trace.record("lane_wait", t_submit, executor=self.name, batch=batch)
+        with trace.span("lane", cpu=True, executor=self.name, batch=batch):
+            return self.run(seeds)
 
     def _one_done(self, _fut: Future) -> None:
         with self._lock:
@@ -225,9 +239,12 @@ class HostExecutor(BaseExecutor):
         """Host sampling → feature collection → inference."""
         n = int(seeds.shape[0])
         seeds_p = pad_to_bucket(np.asarray(seeds).astype(np.int32))
-        hops_np = host_sample_dense(self._child_rng(), self.graph, seeds_p,
-                                    self.fanouts)
-        hops = [torch.from_numpy(h).to(self.device) for h in hops_np]
+        rng = self._child_rng()
+        with trace.span("host_sample"):
+            hops_np = host_sample_dense(rng, self.graph, seeds_p,
+                                        self.fanouts)
+        with trace.span("hops_to_device"):
+            hops = [torch.from_numpy(h).to(self.device) for h in hops_np]
         return self._infer(self.store, hops)[:n]
 
 
@@ -263,9 +280,11 @@ class DeviceExecutor(BaseExecutor):
             chunk = seeds[lo:lo + self.max_batch]
             seeds_p = np.full((self.max_batch,), -1, np.int32)
             seeds_p[:chunk.shape[0]] = chunk
-            hops = device_sample(self._next_generator(), *self.graph_dev,
-                                 torch.from_numpy(seeds_p).to(self.device),
-                                 self.fanouts)
+            gen = self._next_generator()
+            seeds_t = torch.from_numpy(seeds_p).to(self.device)
+            with trace.span("device_sample"):
+                hops = device_sample(gen, *self.graph_dev, seeds_t,
+                                     self.fanouts)
             outs.append(self._infer(self.store, hops)[:chunk.shape[0]])
         return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
 

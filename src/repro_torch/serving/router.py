@@ -26,6 +26,7 @@ from typing import Any, Callable, Mapping, Optional, Sequence
 
 import numpy as np
 
+from repro_torch import trace
 from repro_torch.serving.executors import Executor, _accumulated_psgs
 
 POLICIES = ("cpu_preferred", "gpu_preferred", "latency_preferred",
@@ -439,6 +440,8 @@ class CostModelRouter:
             if e < best_e:
                 best, best_e = name, e
         self.routed[best] += 1
+        if trace.on:
+            trace.note(predicted_s=best_e)
         return best
 
 

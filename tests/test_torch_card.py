@@ -1256,3 +1256,24 @@ def test_fsdp_moe_on_four_cards(four_cards, model):
     assert four[0] == one[0]
     for x, y in ((four[1], one[1]), (four[2], one[2])):
         assert all(torch.equal(x[k], y[k]) for k in x)
+
+
+@pytest.mark.cuda
+def test_program_idle_gaps_name_all_device_idle_time(card, monkeypatch):
+    """A traced short window of reddit-sage2.bulk at its own size with the
+    port's tracer on: the line reports ``program_idle_gaps`` and the
+    feature store's metrics, and the program's spans name every idle
+    second of the device, within 1%."""
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parents[1]
+    monkeypatch.syspath_prepend(str(root))
+    from servebench import program, run
+    line, _, prog = program.traced_cell(
+        run.load_json(root / "BENCHMARK.json"), "reddit-sage2.bulk", 5005,
+        4.0, True, device=torch.device("cuda", 0))
+    assert line["correct"] is True, line["checks"]
+    idle = line["device"]["window_s"] - line["device"]["busy_s"]
+    assert line["program_idle_gaps"]
+    assert sum(prog.gaps.values()) == pytest.approx(idle, rel=0.01)
+    assert sum(v for _, v in line["program_idle_gaps"]) <= idle * 1.01
+    assert {"collect_host_ms", "collect_wait_ms"} <= set(line["metrics"])

@@ -52,7 +52,7 @@ def test_port_imports_with_jax_and_reference_blocked():
             "import repro_torch.configs.deepseek_moe_16b\n"
             "import repro_torch.core.gpu_cache, repro_torch.core.prefetch\n"
             "import repro_torch.serving.adaptive, repro_torch.serving.gateway\n"
-            "import repro_torch.testing, repro_torch.bench.profile_serve\n"
+            "import repro_torch.testing, repro_torch.trace\n"
             "import repro_torch.models.so3, repro_torch.models.schnet\n"
             "import repro_torch.models.meshgraphnet\n"
             "import repro_torch.models.equiformer_v2\n"
