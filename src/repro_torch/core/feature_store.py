@@ -32,10 +32,13 @@ on the stream read the old tensors. Rows travel with their nodes, so a
 lookup returns the same bits whatever the placement, the cache or the
 stage hold.
 
-The ``(N,)`` tier/slot tables are kept twice: as int32 device tensors
-(the device-side gathers index them) and as numpy mirrors published in the
-same snapshot, so host-side address resolution never copies a whole table
-back from the device.
+Address resolution runs on the device: tier and slot come from the
+``(N,)`` int32 device tables, and ``gather_aggregate``'s segment plan is
+built there. Only the ids that are really cold (HOST/DISK) cross to the
+host, and a snapshot whose placement holds no cold row reads nothing
+back. The tables' numpy mirrors, published in the same snapshot, give the
+host chain the tier and slot of those few ids, and serve migration and
+staging reads, without copying a table back from the device.
 
 :class:`ShardedFeatureStore` is the distributed layout over a device mesh
 (paper §5.3's one-sided reads): HOT rows replicated, WARM rows sharded by
@@ -47,10 +50,11 @@ from __future__ import annotations
 import dataclasses
 import os
 import threading
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch import resolve_device, trace
 from repro_torch.core.placement import (PlacementPlan, TIER_DISK, TIER_HOST,
@@ -84,6 +88,45 @@ def _new_stats() -> dict[str, int]:
       cache_evictions              residents displaced by admissions
     """
     return dict.fromkeys(STATS_SCHEMA, 0)
+
+
+class _Cold(NamedTuple):
+    """The cold ids of one lookup, resolved by the host chain: their
+    positions in the lookup's id vector (on the device), their ``(K, d)``
+    rows, and whether the lookup still needs its device-tier gather
+    (``False`` when the cache answered every valid id)."""
+    pos: torch.Tensor
+    rows: torch.Tensor
+    gather: bool
+
+
+def _segment_plan(uniq: torch.Tensor, inv_inner: torch.Tensor,
+                  inner: torch.Tensor, tier: torch.Tensor, slot: torch.Tensor,
+                  cold: Optional[_Cold], p: int, fan: int) -> torch.Tensor:
+    """``gather_aggregate``'s ``(2, total + p, fan)`` int32 tier/slot plan,
+    built on the device from the unique ids, the inverse of the innermost
+    hop ``inner`` and the unique ids' ``tier``/``slot``: one singleton
+    segment per unique id (the outer-hop rows), then one fan-wide segment
+    per innermost parent. Kernel tiers: 0 = hot, 1 = warm, 2 = the cold
+    side table (rows numbered 0..K-1 in unique order), 99 = skip. A cold
+    id left unresolved (``cold`` ``None``) is skipped with its slot kept;
+    a ``-1`` child aliases the last unique slot through the inverse, so it
+    is re-masked to 99 / 0."""
+    ktier = torch.where((uniq >= 0) & (tier < TIER_HOST), tier, 99)
+    kslot = slot
+    if cold is not None:
+        ktier.index_fill_(0, cold.pos, 2)
+        kslot = slot.index_copy(0, cold.pos, torch.arange(
+            int(cold.pos.shape[0]), dtype=slot.dtype, device=slot.device))
+    absent = (inner < 0).view(p, fan)
+    inv_inner = inv_inner.long()
+
+    def rows(addr, skip):
+        return torch.cat([
+            F.pad(addr[:, None], (0, fan - 1), value=skip),
+            addr[inv_inner].view(p, fan).masked_fill_(absent, skip)])
+
+    return torch.stack([rows(ktier, 99), rows(kslot, 0)])
 
 
 class DiskSpillTier:
@@ -235,6 +278,12 @@ class TieredFeatureStore:
     # under _mig_lock but never moves them, so this needs no lock
     built_on: Optional[torch.device] = dataclasses.field(default=None,
                                                          repr=False)
+    # HOST/DISK rows of the placement: 0 lets a lookup skip looking for
+    # cold ids; replaced with the tables, under _mig_lock
+    n_cold: int = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        self.n_cold = int((self.tier_np >= TIER_HOST).sum())
 
     @staticmethod
     def build(features: np.ndarray, plan: PlacementPlan, *,
@@ -314,12 +363,13 @@ class TieredFeatureStore:
     # -- snapshot and accounting ---------------------------------------------
     def _snapshot(self) -> tuple:
         """Consistent view ``(hot, warm, host, disk, tier_t, slot_t,
-        tier_np, slot_np, stage)``: tables and the stage are replaced,
-        never mutated, so holding the references keeps one coherent
-        placement and staging state."""
+        tier_np, slot_np, stage, n_cold)``: tables and the stage are
+        replaced, never mutated, so holding the references keeps one
+        coherent placement and staging state."""
         with self._mig_lock:
             return (self.hot, self.warm, self.host, self.disk, self.tier_t,
-                    self.slot_t, self.tier_np, self.slot_np, self._stage)
+                    self.slot_t, self.tier_np, self.slot_np, self._stage,
+                    self.n_cold)
 
     def _count(self, **deltas: int) -> None:
         with self._stats_lock:
@@ -382,19 +432,18 @@ class TieredFeatureStore:
         ids = self._ids(ids)
         if dedup:
             uniq, inv = fixed_size_unique(ids, int(ids.shape[0]))
-            out = self._cached_unique(uniq, include_host, snap,
-                                      fused=False)[inv.long()]
+            out = self._lookup_unique(uniq, include_host, snap)[inv.long()]
         else:
-            out = self._cached_unique(ids, include_host, snap, fused=False)
+            out = self._lookup_unique(ids, include_host, snap)
         return torch.where((ids >= 0)[:, None], out, 0.0)
 
     def lookup_hops(self, hops: Sequence, *,
                     include_host: bool = True) -> list[torch.Tensor]:
         """Fused feature collection for a whole layered sample: dedup all
-        hops at once, one address-sorted ``tiered_gather`` over HOT/WARM,
-        cold rows from the cache, the stage or at most one host fetch,
-        then scatter rows back per hop. Bit-identical to
-        ``[self.lookup(h) for h in hops]``.
+        hops at once, resolve addresses on the device, one address-sorted
+        ``tiered_gather`` over HOT/WARM, cold rows from the cache, the
+        stage or at most one host fetch, then scatter rows back per hop.
+        Bit-identical to ``[self.lookup(h) for h in hops]``.
 
         Args:
             hops: id vectors (seeds first), each ``(M_k,)`` with ``-1``
@@ -419,7 +468,7 @@ class TieredFeatureStore:
             ids = torch.cat(hops_t)
             with trace.span("dedup"):
                 uniq, inv = fixed_size_unique(ids, total)
-            rows = self._cached_unique(uniq, include_host, snap, fused=True)
+            rows = self._fused_unique(uniq, include_host, snap)
             out = torch.where((ids >= 0)[:, None], rows[inv.long()], 0.0)
             return list(torch.split(out, sizes))
 
@@ -428,8 +477,9 @@ class TieredFeatureStore:
         """Fused feature collection + innermost-hop segment sum in one
         ``gather_aggregate`` launch: the dense ``(n_sampled, d)`` neighbor
         tensor is never materialized. Outer-hop rows ride in the same
-        launch as singleton segments; cold (HOST/DISK) ids are resolved
-        first, through the cache, the stage and the host gateway exactly as
+        launch as singleton segments. The segment plan is built on the
+        device; cold (HOST/DISK) ids are resolved first, through the
+        cache, the stage and the host gateway exactly as
         :meth:`lookup_hops` resolves them, into a side table addressed as
         tier 2, in the place host rows always took.
 
@@ -473,231 +523,160 @@ class TieredFeatureStore:
             ids = torch.cat(hops_t)
             with trace.span("dedup"):
                 uniq, inv = fixed_size_unique(ids, total)
-            # one device→host copy for everything the host-side address
-            # resolution needs
-            with trace.span("ids_to_host"):
-                host_view = torch.cat([uniq, inv, hops_t[-1]]).cpu().numpy()
             with trace.span("resolve"):
-                seg, cold_buf = self._segment_plan(
-                    host_view, total, n_outer, p, fan, include_host, snap)
-            with trace.span("plan_to_device"):
-                seg_t = torch.from_numpy(seg).to(self.device)
+                tier, slot, cold = self._resolve(uniq, include_host, snap)
+                seg = _segment_plan(uniq, inv[n_outer:], hops_t[-1], tier,
+                                    slot, cold, p, fan)
+            # nothing cold resolved (include_host=False, or no cold id):
+            # cold children contribute zero rows
+            cold_buf = (hot.new_zeros((1, self.feat_dim)) if cold is None
+                        else cold.rows)
             self._count(device_gathers=1)
             with trace.span("gather"):
-                out = gather_aggregate(seg_t[0], seg_t[1], hot, warm,
-                                       cold_buf)
+                out = gather_aggregate(seg[0], seg[1], hot, warm, cold_buf)
             if trace.on:
-                trace.count("gather_rows", int(seg[0].size))
-                trace.count("gather_rows_valid", (seg_t[0] != 99).sum())
+                trace.count("gather_rows", int(seg[0].numel()))
+                trace.count("gather_rows_valid", (seg[0] != 99).sum())
             outer_rows = torch.where((ids[:n_outer] >= 0)[:, None],
                                      out[:total][inv[:n_outer].long()], 0.0)
             return list(torch.split(outer_rows, sizes[:-1])), out[total:]
 
-    def _segment_plan(self, host_view: np.ndarray, total: int, n_outer: int,
-                      p: int, fan: int, include_host: bool, snap: tuple
-                      ) -> tuple[np.ndarray, torch.Tensor]:
-        """:meth:`lookup_aggregate`'s host side: ``(seg, cold_buf)``, the
-        ``(2, total + p, fan)`` tier/slot plan of ``gather_aggregate`` and
-        the side table of cold rows (tier 2), from ``host_view`` (the unique
-        ids, the inverse and the innermost hop, copied to the host)."""
-        hot, tier_tab, slot_tab = snap[0], snap[6], snap[7]
-        uniq_np = host_view[:total]
-        inv_inner = host_view[total + n_outer:2 * total]
-        inner_np = host_view[2 * total:]
-        valid_u = uniq_np >= 0
-        safe = np.maximum(uniq_np, 0)
-        tier_np, slot_np = tier_tab[safe], slot_tab[safe]
-        cold = valid_u & (tier_np >= TIER_HOST)
-        cold_idx = np.flatnonzero(cold)
-        # per-unique kernel addresses: 0=hot, 1=warm, 2=cold table, 99=skip
-        ktier = np.full(total, 99, np.int32)
-        ktier[valid_u & (tier_np == TIER_HOT)] = 0
-        ktier[valid_u & (tier_np == TIER_WARM)] = 1
-        kslot = slot_np.copy()
-        if include_host and cold_idx.size:
-            # only the cold ids go through the cache and the stage, in
-            # unique order; no device copy of them is made unless the
-            # cache answers some
-            cold_buf = self._cached_unique(None, include_host, snap,
-                                           fused=True, cold_only=True,
-                                           uniq_np=uniq_np[cold_idx])
-            ktier[cold] = 2
-            kslot[cold] = np.arange(cold_idx.size, dtype=np.int32)
-        else:
-            # device-only probe (or nothing cold): cold children contribute
-            # zero rows, like the unfused include_host=False path
-            cold_buf = hot.new_zeros((1, self.feat_dim))
-        # one singleton segment per unique id (the outer-hop rows), then one
-        # fan-wide segment per innermost parent. A -1 child aliases the
-        # last unique slot through inv, so it is re-masked to 99 here.
-        seg = np.zeros((2, total + p, fan), np.int32)
-        seg[0] = 99
-        seg[0, :total, 0] = ktier
-        seg[1, :total, 0] = kslot
-        seg[0, total:] = np.where(inner_np < 0, 99,
-                                  ktier[inv_inner]).reshape(p, fan)
-        seg[1, total:] = np.where(inner_np < 0, 0,
-                                  kslot[inv_inner]).reshape(p, fan)
-        return seg, cold_buf
+    # -- address resolution and tier paths -------------------------------------
+    def _resolve(self, ids: torch.Tensor, include_host: bool, snap: tuple
+                 ) -> tuple[torch.Tensor, torch.Tensor, Optional[_Cold]]:
+        """Address resolution of one id vector on the device, the step the
+        three tier paths share: ``(tier, slot, cold)``, ``tier`` and
+        ``slot`` gathered from the snapshot's tables (a ``-1`` id reads
+        node 0's).
 
-    # -- tier paths ------------------------------------------------------------
-    def _cached_unique(self, uniq: Optional[torch.Tensor],
-                       include_host: bool, snap: tuple, *, fused: bool,
-                       cold_only: bool = False,
-                       uniq_np: Optional[np.ndarray] = None) -> torch.Tensor:
-        """Route one id vector through the optional device cache, then the
-        tier path for whatever remains.
-
-        Cold (HOST/DISK) ids probe the cache first; hits are blanked to
-        ``-1`` in the tier path's id vector, so they never reach the tier
-        gather, the stage or the host. Missed rows flow through the tier
-        path and are admitted on return. When every valid id is a cold
-        cache hit the tier gather is skipped: ``device_gathers`` is counted
-        here, where the gather is issued (1 per fused call, 2 per plain
-        lookup, 0 for ``cold_only``, whose caller launches its own
-        kernel). ``include_host=False`` bypasses the cache. ``uniq_np`` is
-        ``uniq`` on the host when the caller already copied it; with
-        ``cold_only`` it is the only form given (``uniq`` is ``None``).
+        With ``include_host`` and a placement that holds cold rows, the
+        valid HOST/DISK ids are compacted on the device, and only they
+        cross to the host, in position order, where :meth:`_cold_rows`
+        resolves them; ``cold`` is ``None`` when there are none. Otherwise
+        nothing is read back. Counts ``cold_ids``, the ids sent to the host.
         """
-        gathers = 0 if cold_only else (1 if fused else 2)
-        if cold_only:
-            tier_path = self._cold_unique
-        else:
-            tier_path = self._fused_unique if fused else self._lookup_unique
-        if include_host and uniq_np is None:
-            with trace.span("ids_to_host"):
-                uniq_np = uniq.cpu().numpy()
+        tier_t, slot_t = snap[4], snap[5]
+        safe = ids.long().clamp_min(0)
+        tier, slot = tier_t[safe], slot_t[safe]
+        cold, n = None, 0
+        if include_host and snap[9]:
+            valid = ids >= 0
+            pos = torch.nonzero(valid & (tier >= TIER_HOST)).squeeze(1)
+            n = int(pos.shape[0])
+            if n:
+                with trace.span("ids_to_host"):
+                    # one copy: the cold ids, then the count of valid ids
+                    got = torch.cat([ids[pos], valid.sum(
+                        dtype=torch.int32)[None]]).cpu().numpy()
+                cold = _Cold(pos, *self._cold_rows(got[:-1], int(got[-1]),
+                                                   snap))
+        if trace.on:
+            trace.count("cold_ids", n)
+        return tier, slot, cold
+
+    def _cold_rows(self, ids_np: np.ndarray, n_valid: int, snap: tuple
+                   ) -> tuple[torch.Tensor, bool]:
+        """The host chain for the cold ids of one call: ``(rows, gather)``.
+
+        ``ids_np`` holds valid HOST/DISK ids in the call's order (ascending
+        for a deduplicated call). They probe the optional device cache;
+        the misses come from the stage, else from one :meth:`_host_fetch`,
+        and are admitted to the cache on return. ``rows`` is ``(K, d)`` on
+        the device in ``ids_np`` order; ``gather`` is ``False`` when the
+        cache answered every one of the call's ``n_valid`` valid ids, so
+        that the call issues no device-tier gather.
+        """
         # a single reference read: any published cache (or None) is valid,
         # cached rows being copies of the feature values
         cache = self.cache  # quiverlint: disable=lock-discipline atomic reference read, any snapshot valid
-        if cache is None or not include_host:
-            self._count(device_gathers=gathers)
-            return tier_path(uniq, uniq_np, include_host, snap)
-        tier_np = snap[6][np.maximum(uniq_np, 0)]
-        cold = (uniq_np >= 0) & (tier_np >= TIER_HOST)
-        if not cold.any():
-            self._count(device_gathers=gathers)
-            return tier_path(uniq, uniq_np, include_host, snap)
-        values, miss_index, miss_ids = cache.query(
-            np.where(cold, uniq_np, -1))
-        hit = cold.copy()
-        hit[miss_index] = False
-        self._count(cache_hits=int(hit.sum()),
+        if cache is None:
+            return self._stage_or_fetch(ids_np, snap), True
+        values, miss_index, miss_ids = cache.query(ids_np)
+        self._count(cache_hits=int(ids_np.size - miss_index.size),
                     cache_misses=int(miss_index.size))
-        if not ((uniq_np >= 0) & ~hit).any():
-            return values        # every valid id was a cold cache hit
-        eff_np = np.where(hit, -1, uniq_np).astype(np.int32)
-        eff = None if cold_only else torch.from_numpy(eff_np).to(self.device)
-        self._count(device_gathers=gathers)
-        rows = tier_path(eff, eff_np, include_host, snap)
-        out = torch.where(torch.from_numpy(hit).to(self.device)[:, None],
-                          values, rows)
-        if miss_index.size:
-            evicted = cache.replace(
-                miss_ids, out[torch.from_numpy(miss_index).to(out.device)])
-            self._count(cache_evictions=int(evicted))
-        return out
+        if not miss_index.size:
+            return values, ids_np.size < n_valid
+        rows = self._stage_or_fetch(miss_ids, snap)
+        values[torch.from_numpy(miss_index).to(values.device)] = rows
+        self._count(cache_evictions=int(cache.replace(miss_ids, rows)))
+        return values, True
 
-    def _fused_unique(self, uniq: torch.Tensor, uniq_np: Optional[np.ndarray],
-                      include_host: bool, snap: tuple) -> torch.Tensor:
+    def _stage_or_fetch(self, ids_np: np.ndarray, snap: tuple
+                        ) -> torch.Tensor:
+        """Rows of valid cold ids the cache did not answer: staged ids from
+        the device stage, the rest through one :meth:`_fetch_cold`. Tier
+        and slot come from the host mirrors; prefetch hits and misses land
+        in the dispatch stats. Returns ``(K, d)`` on the device."""
+        tier_np, slot_np, stage = snap[6][ids_np], snap[7][ids_np], snap[8]
+        if stage is None:
+            return self._fetch_cold(ids_np, tier_np, slot_np, snap)
+        stage_slot, stage_rows = stage
+        sslot = stage_slot[ids_np]
+        miss = np.flatnonzero(sslot < 0)
+        self._count(prefetch_hits=int(ids_np.size - miss.size),
+                    prefetch_misses=int(miss.size))
+        if miss.size == ids_np.size:
+            return self._fetch_cold(ids_np, tier_np, slot_np, snap)
+        # a miss reads stage row 0 here and is overwritten below
+        rows = stage_rows.index_select(0, torch.from_numpy(
+            np.maximum(sslot, 0)).to(stage_rows.device))
+        if miss.size:
+            rows[torch.from_numpy(miss).to(rows.device)] = self._fetch_cold(
+                ids_np[miss], tier_np[miss], slot_np[miss], snap)
+        return rows
+
+    def _fused_unique(self, uniq: torch.Tensor, include_host: bool,
+                      snap: tuple) -> torch.Tensor:
         """One gather per tier class for a deduplicated id vector: HOT/WARM
         rows stream through ``tiered_gather`` in ascending (tier, slot)
         order (near-sequential reads, the paper's TLB optimization), and
-        HOST/DISK rows come from the stage or one :meth:`_host_fetch`."""
+        the cold rows :meth:`_resolve` returns are written over their
+        positions."""
         hot, warm = snap[0], snap[1]
-        tier_t, slot_t = snap[4], snap[5]
-        safe = uniq.long().clamp_min(0)
-        tier, slot = tier_t[safe], slot_t[safe]
-        # address-sort key: tier-major, slot-minor; slots clamp into the
-        # device-tier span (host-tier slots may exceed it; their gather
-        # gives zeros either way), keeping the key inside int32
-        span = max(int(hot.shape[0]), int(warm.shape[0]), 1)
-        key = tier * span + slot.clamp_max(span - 1)
-        order = torch.argsort(key, stable=True)
-        tier_s, slot_s = tier[order], slot[order]
-        with trace.span("gather"):
-            dev_sorted = tiered_gather(tier_s, slot_s, hot, warm)
-        if trace.on:
-            trace.count("gather_rows", int(uniq.shape[0]))
-            trace.count("gather_rows_valid", (uniq >= 0).sum())
-        out = torch.empty_like(dev_sorted)
-        out[order] = dev_sorted
-        if include_host:
-            with trace.span("resolve"):
-                out = self._resolve_cold(uniq_np, out, snap)
+        with trace.span("resolve"):
+            tier, slot, cold = self._resolve(uniq, include_host, snap)
+        if cold is not None and not cold.gather:
+            out = hot.new_zeros((uniq.shape[0], self.feat_dim))
+        else:
+            self._count(device_gathers=1)
+            # address-sort key: tier-major, slot-minor; slots clamp into
+            # the device-tier span (host-tier slots may exceed it; their
+            # gather gives zeros either way), keeping the key inside int32
+            span = max(int(hot.shape[0]), int(warm.shape[0]), 1)
+            key = tier * span + slot.clamp_max(span - 1)
+            order = torch.argsort(key, stable=True)
+            tier_s, slot_s = tier[order], slot[order]
+            with trace.span("gather"):
+                dev_sorted = tiered_gather(tier_s, slot_s, hot, warm)
+            if trace.on:
+                trace.count("gather_rows", int(uniq.shape[0]))
+                trace.count("gather_rows_valid", (uniq >= 0).sum())
+            out = torch.empty_like(dev_sorted)
+            out[order] = dev_sorted
+        if cold is not None:
+            out[cold.pos] = cold.rows
         return torch.where((uniq >= 0)[:, None], out, 0.0)
 
-    def _cold_unique(self, uniq: Optional[torch.Tensor], uniq_np: np.ndarray,
-                     include_host: bool, snap: tuple) -> torch.Tensor:
-        """Cold-rows-only tier path of :meth:`lookup_aggregate`:
-        ``uniq_np`` holds HOST/DISK ids, ``-1`` where the cache answered
-        (``uniq`` is unused: no device copy of the ids is needed).
-        Their rows come through the stage and the host gateway exactly as
-        the full paths resolve them, with no device-tier gather (the fused
-        kernel reads HOT/WARM rows itself); ``-1`` positions are zeros.
-        With nothing staged and no ``-1``, the host gateway's rows are the
-        result as they come."""
-        if snap[8] is None and bool((uniq_np >= 0).all()):
-            return self._fetch_cold(uniq_np, snap[6][uniq_np],
-                                    snap[7][uniq_np], snap)
-        out = snap[0].new_zeros((uniq_np.shape[0], self.feat_dim))
-        return self._resolve_cold(uniq_np, out, snap)
-
-    def _lookup_unique(self, ids: torch.Tensor, ids_np: Optional[np.ndarray],
-                       include_host: bool, snap: tuple) -> torch.Tensor:
+    def _lookup_unique(self, ids: torch.Tensor, include_host: bool,
+                       snap: tuple) -> torch.Tensor:
         """The per-hop path: one gather from each device tier, selected per
-        row, then the cold rows."""
+        row, then the cold rows :meth:`_resolve` returns."""
         hot, warm = snap[0], snap[1]
-        tier_t, slot_t = snap[4], snap[5]
-        safe = ids.long().clamp_min(0)
-        tier, slot = tier_t[safe], slot_t[safe].long()
-        out = torch.zeros((ids.shape[0], self.feat_dim), dtype=hot.dtype,
-                          device=hot.device)
-        out = torch.where((tier == TIER_HOT)[:, None],
-                          hot[slot.clamp_max(hot.shape[0] - 1)], out)
-        out = torch.where((tier == TIER_WARM)[:, None],
-                          warm[slot.clamp_max(warm.shape[0] - 1)], out)
-        if include_host:
-            out = self._resolve_cold(ids_np, out, snap)
+        tier, slot, cold = self._resolve(ids, include_host, snap)
+        if cold is not None and not cold.gather:
+            out = hot.new_zeros((ids.shape[0], self.feat_dim))
+        else:
+            self._count(device_gathers=2)
+            slot = slot.long()
+            out = torch.zeros((ids.shape[0], self.feat_dim),
+                              dtype=hot.dtype, device=hot.device)
+            out = torch.where((tier == TIER_HOT)[:, None],
+                              hot[slot.clamp_max(hot.shape[0] - 1)], out)
+            out = torch.where((tier == TIER_WARM)[:, None],
+                              warm[slot.clamp_max(warm.shape[0] - 1)], out)
+        if cold is not None:
+            out[cold.pos] = cold.rows
         return torch.where((ids >= 0)[:, None], out, 0.0)
-
-    def _resolve_cold(self, ids_np: np.ndarray, out: torch.Tensor,
-                      snap: tuple) -> torch.Tensor:
-        """Return ``out`` with the HOST/DISK rows of ``ids_np`` filled in
-        (the caller owns ``out``).
-
-        Staged ids are gathered from the device stage (a full-width gather
-        and a ``where``); the rest fall back to one :meth:`_host_fetch`.
-        Tier and slot come from the host mirrors, so no table crosses to
-        the host; a lookup whose cold ids are all staged (or that has none)
-        issues no fetch. Prefetch hit/miss and DISK counters land in the
-        dispatch stats, and each critical-path DISK miss in the per-node
-        counts :meth:`promote_misses` reads.
-        """
-        tier_tab, slot_tab, stage = snap[6], snap[7], snap[8]
-        safe = np.maximum(ids_np, 0)
-        tier_np, slot_np = tier_tab[safe], slot_tab[safe]
-        cold = (tier_np >= TIER_HOST) & (ids_np >= 0)
-        if not cold.any():
-            return out
-        miss = cold
-        if stage is not None:
-            stage_slot, stage_rows = stage
-            sslot = stage_slot[safe]
-            hit = cold & (sslot >= 0)
-            miss = cold & ~hit
-            self._count(prefetch_hits=int(hit.sum()),
-                        prefetch_misses=int(miss.sum()))
-            if hit.any():
-                sidx = torch.from_numpy(
-                    np.where(hit, sslot, -1).astype(np.int32)).to(out.device)
-                gathered = stage_rows.index_select(0, sidx.clamp_min(0))
-                out = torch.where((sidx >= 0)[:, None], gathered, out)
-        if miss.any():
-            idx = np.flatnonzero(miss)
-            out[torch.from_numpy(idx).to(out.device)] = self._fetch_cold(
-                ids_np[idx], tier_np[idx], slot_np[idx], snap)
-        return out
 
     def _fetch_cold(self, ids_np: np.ndarray, tier_np: np.ndarray,
                     slot_np: np.ndarray, snap: tuple) -> torch.Tensor:
@@ -769,7 +748,8 @@ class TieredFeatureStore:
         Returns:
             ``(K, d)`` feature rows in ``ids`` order.
         """
-        hot, warm, host, disk, _, _, tier_tab, slot_tab, _ = self._snapshot()
+        hot, warm, host, disk, _, _, tier_tab, slot_tab, _, _ = \
+            self._snapshot()
         ids = np.asarray(ids)
         tier, slot = tier_tab[ids], slot_tab[ids]
         out = np.zeros((ids.shape[0], self.feat_dim), host.dtype)
@@ -911,6 +891,7 @@ class TieredFeatureStore:
         tier_t = torch.from_numpy(tier).to(dev)
         slot_t = torch.from_numpy(slot).to(dev)
         owner_t = torch.from_numpy(owner).to(dev)
+        n_cold = int((tier >= TIER_HOST).sum())
 
         # 4) publish tables, mirrors and plan in one critical section
         with self._mig_lock:
@@ -920,6 +901,7 @@ class TieredFeatureStore:
             self.disk = new_stores[TIER_DISK]
             self.tier_t, self.slot_t, self.owner_t = tier_t, slot_t, owner_t
             self.tier_np, self.slot_np = tier, slot
+            self.n_cold = n_cold
             plan.tier, plan.slot = p_tier, p_slot
             plan.pod_owner, plan.device_owner = p_pod, p_dev
             self.migrated_rows += 2 * len(pairs)
@@ -1119,7 +1101,7 @@ class ShardedFeatureStore:
         if world != mesh_world:
             raise ValueError(f"the placement is for {world} devices, the "
                              f"mesh has {mesh_world}")
-        hot, warm, _, _, _, _, tier, slot, _ = store._snapshot()
+        hot, warm, _, _, _, _, tier, slot, _, _ = store._snapshot()
         rows = int(warm.shape[0])
         per = -(-rows // world)
         base = _host(store.warm_base).astype(np.int64)

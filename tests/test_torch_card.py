@@ -695,6 +695,73 @@ def test_stage_churn_and_migration_exact_on_card(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["device", "cold"])
+def test_device_resolution_card_matches_cpu(card, placement, monkeypatch):
+    """Address resolution on the card: ``lookup_aggregate`` and
+    ``lookup_hops`` give the CPU store's rows and sums bit for bit, with
+    every row on the card or not. With every row on the card a call copies
+    nothing from the device; otherwise only the distinct cold ids and one
+    count (int32) cross."""
+    from repro_torch.core import (TieredFeatureStore, TopologySpec,
+                                  quiver_placement)
+    n, d = 4000, 64
+    rng = np.random.default_rng(3)
+    feats = rng.normal(size=(n, d)).astype(np.float32)
+    topo = TopologySpec(num_pods=1, devices_per_pod=1,
+                        rows_per_device=n if placement == "device" else 1000,
+                        rows_host=2000, hot_replicate_fraction=0.25)
+    fap = rng.random(n)
+    dev, cpu = [TieredFeatureStore.build(feats, quiver_placement(fap, topo),
+                                         device=x) for x in (card, "cpu")]
+    assert (dev.n_cold == 0) == (placement == "device")
+    copied = []
+
+    def spy(real):
+        def call(self, *a, **k):
+            out = real(self, *a, **k)
+            if self.is_cuda and not (isinstance(out, torch.Tensor)
+                                     and out.is_cuda):
+                copied.append(self.numel() * self.element_size())
+            return out
+        return call
+
+    def draw():
+        return [rng.integers(-1, n, s).astype(np.int32)
+                for s in (64, 640, 3200)]
+
+    first = draw()                            # builds the kernels
+    for s in (dev, cpu):
+        s.lookup_hops(first)
+        s.lookup_aggregate(first)
+    for step in range(3):
+        hops = draw()
+        ids = np.unique(np.concatenate(hops))
+        n_cold = int((dev.tier_np[ids[ids >= 0]] >= 2).sum())
+        hops_d = [torch.from_numpy(h).to(card) for h in hops]
+        want = cpu.lookup_hops(hops) + list(cpu.lookup_aggregate(hops)[1:])
+        for call in ("lookup_hops", "lookup_aggregate"):
+            copied.clear()
+            with monkeypatch.context() as m:
+                for name in ("cpu", "to", "item", "tolist", "__bool__",
+                             "__int__", "__float__", "__index__"):
+                    m.setattr(torch.Tensor, name,
+                              spy(getattr(torch.Tensor, name)))
+                got = getattr(dev, call)(hops_d)
+            if call == "lookup_hops":
+                rows = list(got)
+            else:
+                feats_a, agg = got
+                assert all(x.equal(y) for x, y in zip(feats_a, rows[:2]))
+                rows.append(agg)
+            assert sum(copied) == (4 * (n_cold + 1) if n_cold else 0), (
+                call, copied, n_cold)
+        assert (n_cold == 0) == (placement == "device")
+        for x, y in zip(rows, want):
+            assert x.cpu().view(torch.int32).equal(y.view(torch.int32))
+    assert dev.snapshot_stats() == cpu.snapshot_stats()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("strategy", ["alltoall", "allgather"])
 def test_sharded_lookups_card_match_cpu(card, strategy, tmp_path):
     """Four logical shards on the card: the sharded exchange, with its

@@ -14,7 +14,9 @@ import pytest
 import torch
 
 from repro_torch import trace
-from repro_torch.core import Request
+from repro_torch.core import (Request, TieredFeatureStore, TopologySpec,
+                              quiver_placement)
+from repro_torch.core.placement import TIER_HOST
 from repro_torch.launch import serve as launcher
 from repro_torch.serving import (CostModelRouter, DeviceExecutor,
                                  HostExecutor, LatencyCurve, ServingEngine)
@@ -201,8 +203,10 @@ def test_engine_spans_join_each_batch(stack, curves, tracer):
     lanes = [s for s in spans if s.name == "lane"]
     assert all(any(_inside(s, ln) for ln in lanes) for s in lookups)
     stages = [s for s in spans if s.name in STAGES]
-    assert {"dedup", "ids_to_host", "resolve", "gather",
-            "plan_to_device"} <= {s.name for s in stages}
+    # the segment plan is built on the device: no plan crosses to it
+    assert {"dedup", "ids_to_host", "resolve",
+            "gather"} <= {s.name for s in stages}
+    assert "plan_to_device" not in {s.name for s in stages}
     assert all(any(_inside(s, lk) for lk in lookups) for s in stages)
     for name in ("host_sample", "hops_to_device", "device_sample", "model"):
         assert all(any(_inside(s, ln) for ln in lanes)
@@ -249,3 +253,51 @@ def test_gather_counters(stack, tracer, aggregate):
         assert counts["gather_rows"] == total
         valid = np.unique(ids[ids >= 0]).size
     assert counts["gather_rows_valid"] == valid
+
+
+def _layered(seed):
+    rng = np.random.default_rng(seed)
+    hops = [rng.integers(-1, N, 8).astype(np.int32)]
+    for f in FAN:
+        hops.append(rng.integers(-1, N, hops[-1].shape[0] * f)
+                    .astype(np.int32))
+    return hops
+
+
+def _placed(rows_per_device, rows_host):
+    feats = np.random.default_rng(2).normal(size=(N, D)).astype(np.float32)
+    topo = TopologySpec(num_pods=1, devices_per_pod=1,
+                        rows_per_device=rows_per_device, rows_host=rows_host,
+                        hot_replicate_fraction=0.3)
+    return TieredFeatureStore.build(
+        feats, quiver_placement(np.random.default_rng(0).random(N), topo),
+        device="cpu")
+
+
+@pytest.mark.parametrize("aggregate", [False, True])
+def test_every_row_on_the_device_reads_nothing_back(tracer, aggregate):
+    store = _placed(N, 0)
+    assert store.n_cold == 0
+    hops = _layered(5)
+    (store.lookup_aggregate if aggregate else store.lookup_hops)(hops)
+    got = trace.take()
+    names = {s.name for s in got["spans"]}
+    assert {"dedup", "resolve", "gather"} <= names
+    assert not {"ids_to_host", "plan_to_device", "host_fetch"} & names
+    assert got["counts"]["cold_ids"] == 0
+
+
+@pytest.mark.parametrize("aggregate", [False, True])
+def test_cold_ids_counts_the_distinct_cold_ids(tracer, aggregate):
+    store = _placed(220, N)       # every row off the device is HOST
+    hops = _layered(6)
+    ids = np.concatenate(hops)
+    ids = np.unique(ids[ids >= 0])
+    cold = int((store.tier_np[ids] == TIER_HOST).sum())
+    assert 0 < cold < ids.size
+    (store.lookup_aggregate if aggregate else store.lookup_hops)(hops)
+    got = trace.take()
+    assert got["counts"]["cold_ids"] == cold
+    names = [s.name for s in got["spans"]]
+    assert names.count("ids_to_host") == names.count("host_fetch") == 1
+    assert "plan_to_device" not in names
