@@ -1,5 +1,7 @@
 """How ``correct`` is decided: what the timed path produced for a sample of
-requests, held against the plain reference (``servebench/reference``).
+requests, held against the plain reference: the sample's rules and the
+collected rows (``servebench/reference/sample.py``) and the
+configuration's architecture (``servebench/reference/<arch>.py``).
 
 Numbers compared, each with its limit (``limits`` in the configuration
 file, or 0 for an exact comparison):
@@ -14,25 +16,26 @@ file, or 0 for an exact comparison):
 * ``agg_err``: largest absolute gap of the sampled innermost sums
   (``lookup_aggregate``) from the reference's float32 sum;
 * ``embed_err``: largest absolute gap of a served embedding from the
-  reference's float32 GraphSAGE over the same sample.
+  architecture's float32 reference over the same sample.
 """
 from __future__ import annotations
 
 import torch
 
-from servebench.reference import sage as ref
+from servebench.reference import sample
 
 
-def compare(cfg: dict, graph, feats_np, weights_np, items: list,
+def compare(ref, cfg: dict, graph, feats_np, weights_np, items: list,
             device: torch.device, *, control: bool = False) -> dict:
     """Readings over ``items``, each ``(seeds, result, records)`` (records
-    ``None`` when nothing was captured). With ``control`` the reference in
-    the next precision below stands in the program's place: TF32 matrix
+    ``None`` when nothing was captured); ``ref`` is the architecture's
+    reference (``weights_on``, ``embed``). With ``control`` the reference
+    in the next precision below stands in the program's place: TF32 matrix
     products for the model (``control_embed_err``), bfloat16 sums for the
     innermost aggregation (``control_agg_err``)."""
-    ref.no_tf32()
+    sample.no_tf32()
     fanouts = list(cfg["fanouts"])
-    g = ref.Graph(graph.indptr, graph.indices, graph.num_nodes, device)
+    g = sample.Graph(graph.indptr, graph.indices, graph.num_nodes, device)
     feats = torch.as_tensor(feats_np, device=device)
     w = ref.weights_on(weights_np, device)
     out = {"uncaptured": 0, "hops_invalid": 0, "feature_mismatch": 0,
@@ -47,22 +50,22 @@ def compare(cfg: dict, graph, feats_np, weights_np, items: list,
         lo = 0
         for rec in records:
             chunk = min(int(rec.hops[0].shape[0]), int(seeds_t.shape[0]) - lo)
-            out["hops_invalid"] += ref.invalid_hops(
+            out["hops_invalid"] += sample.invalid_hops(
                 g, rec.hops, seeds_t[lo:lo + chunk], fanouts)
             for k, (pos, got) in enumerate(zip(rec.feat_pos, rec.feat_rows)):
-                want = ref.rows(feats, rec.hops[k][pos])
+                want = sample.rows(feats, rec.hops[k][pos])
                 out["feature_mismatch"] += int(
                     (got.to(device) != want).sum())
             if rec.agg_pos is not None:
                 fan = fanouts[-1]
                 parents = rec.hops[-2][rec.agg_pos]
                 child = rec.hops[-1].view(-1, fan)[rec.agg_pos].reshape(-1)
-                want = ref.fan_sums(feats, parents, child, fan)
+                want = sample.fan_sums(feats, parents, child, fan)
                 gap = (rec.agg_rows.to(device) - want).abs().max()
                 out["agg_err"] = max(out["agg_err"], float(gap))
                 if control:
-                    ctl = ref.fan_sums(feats, parents, child, fan,
-                                       bf16=True)
+                    ctl = sample.fan_sums(feats, parents, child, fan,
+                                          bf16=True)
                     out["control_agg_err"] = max(
                         out.get("control_agg_err", 0.0),
                         float((ctl - want).abs().max()))

@@ -14,8 +14,13 @@ the program and a ``torch.profiler`` trace of the window).
 
 Everything is found by name: the cell in ``BENCHMARK.json``, its
 configuration in ``servebench/configs/<config>.json``, its mix in
-``servebench/traffic/<traffic>.json`` and each per-layer metric's reader
-in ``servebench/metrics/<metric>.py``. Exits 2, printing no result, when
+``servebench/traffic/<traffic>.json``, the configuration's ``arch`` in
+``servebench/archs/<arch>.py`` (its weights, the port's ``infer_fn``, the
+function the ``model`` span wraps, its FLOPs a seed and the ``collect``
+modes it takes) and ``servebench/reference/<arch>.py`` (its plain
+equations), every kernel the run builds, records and costs in
+``servebench/kernels/<kernel>.py``, and each per-layer metric's reader in
+``servebench/metrics/<metric>.py``. Exits 2, printing no result, when
 there is no CUDA device (or fewer than the cell asks for), when the
 program is not in the checkout, or when JAX or the JAX package was loaded.
 """
@@ -75,15 +80,44 @@ def cell_spec(bench: dict, name: str, bench_dir: Path) -> dict:
             "end_to_end": e2e, "per_layer": layer}
 
 
-def reader(bench_dir: Path, metric: str):
-    """``read(ctx)`` of ``servebench/metrics/<metric>.py``."""
-    path = bench_dir / "metrics" / f"{metric}.py"
+def load(bench_dir: Path, folder: str, name: str):
+    """The module ``servebench/<folder>/<name>.py`` of ``bench_dir``,
+    loaded from its file."""
+    path = bench_dir / folder / f"{name}.py"
     spec = importlib.util.spec_from_file_location(
-        "servebench_metric_" + metric.replace(".", "_").replace("-", "_"),
+        f"servebench_{folder}_" + name.replace(".", "_").replace("-", "_"),
         path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(bench_dir: Path, metric: str):
+    """``read(ctx)`` of ``servebench/metrics/<metric>.py``."""
+    return load(bench_dir, "metrics", metric).read
+
+
+def arch_of(cfg: dict, bench_dir: Path):
+    """``(archs/<arch>.py, reference/<arch>.py)`` of the configuration's
+    ``arch``; stops when it names none of ``archs/`` or asks for a
+    ``collect`` the architecture does not take."""
+    known = sorted(p.stem for p in (bench_dir / "archs").glob("*.py"))
+    name = cfg.get("arch")
+    if name not in known:
+        raise SystemExit(f"configuration {cfg.get('name')!r}: arch "
+                         f"{name!r} is not one of {known}")
+    arch = load(bench_dir, "archs", name)
+    if cfg["collect"] not in arch.COLLECTS:
+        raise SystemExit(f"configuration {cfg.get('name')!r}: arch {name!r} "
+                         f"takes collect {list(arch.COLLECTS)}, not "
+                         f"{cfg['collect']!r}")
+    return arch, load(bench_dir, "reference", name)
+
+
+def kernels(bench_dir: Path) -> dict:
+    """Every ``servebench/kernels/<kernel>.py`` by name."""
+    return {p.stem: load(bench_dir, "kernels", p.stem)
+            for p in sorted((bench_dir / "kernels").glob("*.py"))}
 
 
 def _free(dev: torch.device) -> None:
@@ -93,18 +127,18 @@ def _free(dev: torch.device) -> None:
         torch.cuda.empty_cache()
 
 
-def _span_targets():
+def _span_targets(arch):
     from repro_torch.core.feature_store import TieredFeatureStore
-    from repro_torch.models import gnn_basic
     from repro_torch.serving import executors
     from repro_torch.serving.router import CostModelRouter
+    module, fn = arch.MODEL_SPAN
     return [(executors, "host_sample_dense", "host_sample"),
             (executors, "device_sample", "device_sample"),
             (TieredFeatureStore, "lookup_hops", "lookup_hops"),
             (TieredFeatureStore, "lookup_aggregate", "lookup_aggregate"),
             (TieredFeatureStore, "_host_fetch", "host_fetch"),
             (CostModelRouter, "route", "route"),
-            (gnn_basic, "sage_layered", "model")]
+            (importlib.import_module(module), fn, "model")]
 
 
 def log(msg: str) -> None:
@@ -113,9 +147,13 @@ def log(msg: str) -> None:
 
 @dataclasses.dataclass
 class Prepared:
-    """A cell's inputs and the program's stack built over them."""
+    """A cell's inputs and the program's stack built over them, with the
+    configuration's architecture (``archs/<arch>.py``) and its reference
+    (``reference/<arch>.py``)."""
 
     cfg: dict
+    arch: object
+    ref: object
     graph: inputs.Graph
     feats: np.ndarray
     weights: dict
@@ -124,12 +162,13 @@ class Prepared:
     engine: object
 
 
-def prepare(cfg: dict, traffic: dict, seed: int,
-            device: torch.device) -> Prepared:
+def prepare(cfg: dict, traffic: dict, seed: int, device: torch.device,
+            bench_dir: Path = BENCH_DIR) -> Prepared:
     """Draw the inputs from ``seed`` and build the stack over them (the
     router's calibration warms every request size the mix sends)."""
     from repro_torch.kernels.build import build
 
+    arch, ref = arch_of(cfg, bench_dir)
     t = time.perf_counter()
 
     def phase(name: str) -> None:
@@ -139,24 +178,24 @@ def prepare(cfg: dict, traffic: dict, seed: int,
         t = now
 
     if device.type == "cuda":
-        build(("tiered_gather", "gather_aggregate"))
+        build(tuple(k.BUILD for k in kernels(bench_dir).values()))
         phase("kernels")
     graph = inputs.power_law_graph(cfg["nodes"], cfg["num_edges"],
                                    cfg["exponent"], seed, device)
     phase(f"graph ({graph.num_edges} edges)")
     feats = inputs.features(cfg["nodes"], cfg["feat_dim"], seed, device)
-    dims = [cfg["feat_dim"], *cfg["hidden"], cfg["classes"]]
-    weights = inputs.sage_weights(dims, seed, device)
+    weights = arch.weights(cfg, seed, device)
     law = inputs.SeedLaw(graph.out_degree, traffic["seed_law"])
     phase("features and weights")
     capture = stack.Capture(inputs.sub_seed(seed, 99))
-    engine = stack.build(cfg, graph, feats, weights,
+    engine = stack.build(cfg, arch, graph, feats, weights,
                          inputs.calibration_batches(traffic, law, seed),
                          capture, device, phase=phase)
     # the window starts on the allocator's pool as calibration and the
     # lanes' warm-up left it: no empty_cache here
     gc.collect()
-    return Prepared(cfg, graph, feats, weights, law, capture, engine)
+    return Prepared(cfg, arch, ref, graph, feats, weights, law, capture,
+                    engine)
 
 
 def drive(prep: Prepared, traffic: dict, seconds: float,
@@ -192,8 +231,8 @@ def answers(prep: Prepared, res: loops.LoopResult, device: torch.device,
     prep.engine = prep.capture = None
     res.sent.clear()
     _free(device)
-    return check.compare(prep.cfg, prep.graph, prep.feats, prep.weights,
-                         items, device, control=control)
+    return check.compare(prep.ref, prep.cfg, prep.graph, prep.feats,
+                         prep.weights, items, device, control=control)
 
 
 def run_cell(bench: dict, name: str, seed: int, seconds: float,
@@ -203,17 +242,17 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float,
     """Run one cell once; returns ``(result line, [(check, value,
     limit)])``. ``device`` cpu runs the same path on the CPU (no device
     trace, no device metrics)."""
-    from repro_torch.core import feature_store
-
     spec = cell_spec(bench, name, bench_dir)
     cfg, traffic = spec["cfg"], spec["traffic"]
-    prep = prepare(cfg, traffic, seed, device)
+    prep = prepare(cfg, traffic, seed, device, bench_dir)
+    arch, kerns = prep.arch, kernels(bench_dir)
 
     spans = launches = dtrace = None
     if traced:
-        spans = trace.Spans(_span_targets()).__enter__()
-        launches = {k: trace.Launches(feature_store, k).__enter__()
-                    for k in ("tiered_gather", "gather_aggregate")}
+        spans = trace.Spans(_span_targets(arch)).__enter__()
+        launches = {k: trace.Launches(importlib.import_module(m.MODULE),
+                                      m.WRAPPER).__enter__()
+                    for k, m in kerns.items()}
         if device.type == "cuda":
             dtrace = trace.DeviceTrace()
             dtrace.start()
@@ -258,19 +297,15 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float,
             dev_info["window_s"] = red["window_s"]
             breakdown = {"device_ops": red["device_ops"],
                          "idle_gaps": red["idle_gaps"]}
-        from servebench import costs
-        bytes_of = {
-            "tiered_gather": [costs.tiered_gather_bytes(*a)
-                              for a in launches["tiered_gather"].args],
-            "gather_aggregate": [costs.gather_aggregate_bytes(*a)
-                                 for a in launches["gather_aggregate"].args]}
+        bytes_of = {k: [kerns[k].least_bytes(*a) for a in rec.args]
+                    for k, rec in launches.items()}
         del launches
 
         def roofline(kernel: str, hbm: float):
             if red is None:
                 return None
             evs = sorted((ts, dur) for n, ts, dur in red["kernels"]
-                         if f"{kernel}_kernel" in n)
+                         if kerns[kernel].TRACE_NAME in n)
             k = min(len(evs), len(bytes_of[kernel]))
             dev_s = sum(d for _, d in evs[:k]) * 1e-6
             if k == 0 or dev_s <= 0:
@@ -281,7 +316,7 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float,
                "span_ms": lambda n: spans.durations_ms(n, t0p, t1p),
                "roofline": roofline, "served_seeds": served,
                "window_s": window_s, "latencies_ms": lat,
-               "on_card": device.type == "cuda"}
+               "on_card": device.type == "cuda", "arch": arch}
         for m in spec["per_layer"]:
             value = reader(bench_dir, m["name"])(ctx)
             if value is not None:

@@ -1,7 +1,8 @@
 """The system under test: the port's single-host serving stack, built as
 its serve launcher builds it (``launch/serve.py``: ``build_executors``, a
 calibrated ``CostModelRouter``, ``ServingEngine``), over the graph,
-features and weights the benchmark drew.
+features and weights the benchmark drew, serving the configuration's
+architecture (``servebench/archs/<arch>.py``).
 
 :class:`Capture` wraps the executors' ``run`` and the model's
 ``infer_fn`` so that, for the requests the check samples, what the timed
@@ -138,18 +139,17 @@ def seed_prob(graph: Graph) -> np.ndarray:
     return w / w.sum()
 
 
-def build(cfg: dict, graph: Graph, feats: np.ndarray, weights: dict,
+def build(cfg: dict, arch, graph: Graph, feats: np.ndarray, weights: dict,
           cal_batches: list, capture: Capture, device: torch.device, *,
           phase: Callable[[str], None] = lambda name: None):
     """PSGS and FAP on ``device``, Quiver's placement over the
-    configuration's topology, the tiered store, GraphSAGE from
-    ``weights``, the launcher's host and device executors, the router
+    configuration's topology, the tiered store, ``arch``'s ``infer_fn``
+    over ``weights``, the launcher's host and device executors, the router
     calibrated on ``cal_batches``; returns the ``ServingEngine``."""
     from repro_torch.core import (TieredFeatureStore, TopologySpec,
                                   compute_fap, compute_psgs, quiver_placement)
     from repro_torch.graph import CSRGraph
-    from repro_torch.launch.serve import build_executors, make_infer_fn
-    from repro_torch.models.gnn_basic import sage_from_numpy
+    from repro_torch.launch.serve import build_executors
     from repro_torch.serving import (CostModelRouter, ServingEngine,
                                      calibrate_executors)
 
@@ -168,8 +168,7 @@ def build(cfg: dict, graph: Graph, feats: np.ndarray, weights: dict,
     store = TieredFeatureStore.build(feats, quiver_placement(fap, topo),
                                      device=device)
     phase("placement and store")
-    model = sage_from_numpy(weights, device=device)
-    infer = capture.wrap_infer(make_infer_fn(model, fanouts))
+    infer = capture.wrap_infer(arch.infer_fn(cfg, weights, device))
     executors = build_executors(
         g, store, fanouts, infer, psgs, num_workers=int(ex_cfg["lanes"]),
         max_batch=int(ex_cfg["max_batch"]), fused=True,

@@ -1,7 +1,8 @@
 """CPU tests of the serving benchmark: a tiny cell end to end, the
 reference against the port, the control and the planted faults failing,
-new configurations, mixes and metrics found by name, the import rules,
-and the yardstick's arithmetic. The card's test is marked ``cuda``.
+new configurations, mixes, metrics and architectures found by name, the
+import rules, and the yardstick's arithmetic. The card's test is marked
+``cuda``.
 
     PYTHONPATH=src python -m pytest -q servebench
 """
@@ -9,9 +10,11 @@ from __future__ import annotations
 
 import ast
 import json
+import re
 import shutil
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -24,18 +27,18 @@ for p in (str(ROOT), str(ROOT / "src")):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-from servebench import costs, inputs, run  # noqa: E402
-from servebench.reference import sage as ref  # noqa: E402
+from servebench import check, costs, inputs, run  # noqa: E402
+from servebench.reference import sage as ref, sample  # noqa: E402
 
 CPU = torch.device("cpu")
 SEED = 2**31 + 17
 
 
 def _tiny_cfg(collect: str, limits: dict) -> dict:
-    return {"name": "tiny", "nodes": 3000, "num_edges": 30000,
-            "exponent": 1.6, "feat_dim": 16, "hidden": [32, 32],
-            "classes": 8, "fanouts": [4, 3, 2], "dtype": "float32",
-            "collect": collect,
+    return {"name": "tiny", "arch": "sage", "nodes": 3000,
+            "num_edges": 30000, "exponent": 1.6, "feat_dim": 16,
+            "hidden": [32, 32], "classes": 8, "fanouts": [4, 3, 2],
+            "dtype": "float32", "collect": collect,
             "topology": {"rows_per_device": 750, "rows_host": 1500,
                          "hot_frac": 0.25},
             "executor": {"max_batch": 64, "lanes": 2, "max_inflight": 64,
@@ -51,8 +54,11 @@ def _limits(config: str) -> dict:
 @pytest.fixture
 def tiny(tmp_path):
     """A benchmark directory of tiny cells over the real metric readers,
-    and the ``BENCHMARK.json`` naming them."""
-    shutil.copytree(BENCH_DIR / "metrics", tmp_path / "metrics")
+    architectures, references and kernels, and the ``BENCHMARK.json``
+    naming them."""
+    for folder in ("metrics", "archs", "reference", "kernels"):
+        shutil.copytree(BENCH_DIR / folder, tmp_path / folder,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     (tmp_path / "configs").mkdir()
     (tmp_path / "traffic").mkdir()
     cfgs = {"tiny": _tiny_cfg("lookup_hops", _limits("products-sage3")),
@@ -116,9 +122,7 @@ def test_traced_tiny_cell_reports_per_layer_metrics(tiny):
         set(line["metrics"])
     assert set(line["metrics"]) <= {"routed_device_share",
                                     "p99_ms.host_paced",
-                                    "service_p50_ms.host",
-                                    "service_p50_ms.device",
-                                    "host_sample_ms"}
+                                    "service_p50_ms.device"}
     assert "busy_s" not in line["device"]
 
 
@@ -134,7 +138,7 @@ def test_reference_follows_the_port_on_a_small_sample():
     w_np = inputs.sage_weights([12, 24, 24, 5], SEED, CPU)
     fanouts = [5, 4, 3]
     seeds = np.arange(0, 2000, 97)
-    rg = ref.Graph(g.indptr, g.indices, g.num_nodes, CPU)
+    rg = sample.Graph(g.indptr, g.indices, g.num_nodes, CPU)
     hops_h = [torch.from_numpy(h) for h in host_sample_dense(
         np.random.default_rng(1), csr, np.pad(seeds, (0, 11),
                                               constant_values=-1),
@@ -147,16 +151,17 @@ def test_reference_follows_the_port_on_a_small_sample():
     feats_t = torch.from_numpy(feats)
     w = ref.weights_on(w_np, CPU)
     for hops in (hops_h, hops_d):
-        assert ref.invalid_hops(rg, hops, torch.as_tensor(seeds),
-                                fanouts) == 0
-        got = sage_layered(model, [ref.rows(feats_t, h) for h in hops],
+        assert sample.invalid_hops(rg, hops, torch.as_tensor(seeds),
+                                   fanouts) == 0
+        got = sage_layered(model, [sample.rows(feats_t, h) for h in hops],
                            fanouts, [(h >= 0).float()[:, None] for h in hops])
         want = ref.embed(w, feats_t, hops, fanouts)
         assert (got - want).abs().max() < 1e-5
     # a slot moved to a node that is not a neighbour breaks the rules
     bad = [h.clone() for h in hops_d]
     bad[2][7] = (bad[2][7] + 1) % g.num_nodes
-    assert ref.invalid_hops(rg, bad, torch.as_tensor(seeds), fanouts) >= 1
+    assert sample.invalid_hops(rg, bad, torch.as_tensor(seeds),
+                               fanouts) >= 1
 
 
 def test_the_lower_precision_control_fails(tiny):
@@ -258,6 +263,206 @@ def test_new_files_are_found_by_name(tiny, tmp_path):
                            device=CPU, bench_dir=bench_dir)
     assert line["correct"] is True
     assert line["metrics"]["answered_share"]["value"] == 100.0
+
+
+TOY_ARCH = """\
+\"\"\"A toy one-layer model over the first two hops: tanh(x W_s + mean of
+the valid children's rows W_n + b), in its own torch ops.\"\"\"
+import torch
+
+from servebench import inputs
+
+COLLECTS = ("lookup_hops",)
+MODEL_SPAN = ("torch", "tanh")
+FAULT = {fault!r}
+
+
+def weights(cfg, seed, device):
+    gen = torch.Generator(device=device).manual_seed(inputs.sub_seed(seed, 2))
+    d, c = cfg["feat_dim"], cfg["classes"]
+    w = torch.randn((2 * d + 1, c), generator=gen, device=device) / d ** 0.5
+    w = w.cpu().numpy()
+    return {{"self": w[:d], "neigh": w[d:2 * d], "b": w[-1]}}
+
+
+def infer_fn(cfg, weights, device):
+    fan = cfg["fanouts"][0]
+    ws, wn, b = (torch.as_tensor(weights[k], device=device)
+                 for k in ("self", "neigh", "b"))
+
+    def infer(hop_feats, hop_ids, deep_agg=None):
+        x = hop_feats[0]
+        m = (hop_ids[1] >= 0).float().view(x.shape[0], fan, 1)
+        kids = hop_feats[1].view(x.shape[0], fan, -1)
+        agg = (kids * m).sum(1) / m.sum(1).clamp_min(1.0)
+        return torch.tanh(x @ ws + agg @ wn + b) + FAULT
+
+    return infer
+
+
+def flops_per_seed(cfg):
+    d, c, fan = cfg["feat_dim"], cfg["classes"], cfg["fanouts"][0]
+    return 2 * 2 * d * c + fan * d
+"""
+
+TOY_REFERENCE = """\
+\"\"\"The toy model's equations, seed by seed.\"\"\"
+import torch
+
+
+def weights_on(weights_np, device):
+    return {k: torch.tensor(v, dtype=torch.float32, device=device)
+            for k, v in weights_np.items()}
+
+
+def embed(w, feats, hops, fanouts, *, tf32=False):
+    seeds = hops[0].to(feats.device).long()
+    kids = hops[1].to(feats.device).long().view(-1, fanouts[0])
+    out = []
+    for s, row in zip(seeds.tolist(), kids):
+        x = feats[s] if s >= 0 else torch.zeros_like(feats[0])
+        valid = row[row >= 0]
+        agg = (feats[valid].mean(0) if valid.numel()
+               else torch.zeros_like(feats[0]))
+        z = w["b"] + (x[:, None] * w["self"]).sum(0) \
+            + (agg[:, None] * w["neigh"]).sum(0)
+        out.append(torch.tanh(z))
+    return torch.stack(out)
+"""
+
+
+@pytest.mark.parametrize("fault", [0.0, 1e-2], ids=["sound", "faulted"])
+def test_a_second_architecture_enters_by_new_files(tiny, fault):
+    """A toy architecture added as files (its program side, its reference,
+    a configuration naming it, a cell of BENCHMARK.json) runs ``correct``
+    with no edit of the harness; a fault planted in its ``infer_fn`` fails
+    ``embed_err``."""
+    bench, bench_dir = tiny
+    (bench_dir / "archs" / "toy.py").write_text(TOY_ARCH.format(
+        fault=fault))
+    (bench_dir / "reference" / "toy.py").write_text(TOY_REFERENCE)
+    cfg = dict(_tiny_cfg("lookup_hops", _limits("products-sage3")),
+               name="toycfg", arch="toy", fanouts=[4, 3])
+    (bench_dir / "configs" / "toycfg.json").write_text(json.dumps(cfg))
+    bench["workloads"].append({"name": "toycfg.bulk", "config": "toycfg",
+                               "traffic": "tbulk", "chips": 1})
+    bench["end_to_end"][1]["workloads"].append("toycfg.bulk")
+    line, rows = run.run_cell(bench, "toycfg.bulk", SEED, 1.0, False,
+                              device=CPU, bench_dir=bench_dir)
+    assert set(line["metrics"]) == {"seeds_per_s", "setup_s"}
+    failed = {n for n, v, lim in rows if v > lim}
+    assert line["correct"] is (not fault), line["checks"]
+    assert failed == ({"embed_err"} if fault else set()), line["checks"]
+
+
+@pytest.mark.parametrize("change, says", [
+    ({"arch": None}, "['sage']"),
+    ({"arch": "gat"}, "['sage']"),
+    ({"collect": "lookup_all"}, "['lookup_hops', 'lookup_aggregate']")],
+    ids=["no_arch", "unknown_arch", "collect_not_taken"])
+def test_a_configuration_the_archs_cannot_serve_is_refused(tiny, change,
+                                                           says):
+    bench, bench_dir = tiny
+    spec = run.cell_spec(bench, "tiny.mixed", bench_dir)
+    cfg = {k: v for k, v in dict(spec["cfg"], **change).items()
+           if v is not None}
+    with pytest.raises(SystemExit, match=re.escape(says)):
+        run.prepare(cfg, spec["traffic"], SEED, CPU, bench_dir)
+
+
+def test_sage_draws_the_weights_inputs_draws():
+    sage = run.load(BENCH_DIR, "archs", "sage")
+    cfg = _tiny_cfg("lookup_hops", {})
+    got = sage.weights(cfg, SEED, CPU)
+    want = inputs.sage_weights([16, 32, 32, 8], SEED, CPU)
+    assert len(got["layers"]) == len(want["layers"]) == 3
+    for g, w in zip(got["layers"], want["layers"]):
+        for part in ("self", "neigh", "ln"):
+            for k in w[part]:
+                assert g[part][k].dtype == w[part][k].dtype
+                assert np.array_equal(g[part][k], w[part][k]), (part, k)
+
+
+def _old_compare(cfg, graph, feats_np, weights_np, items, device):
+    """``check.compare`` before architectures were found by name, without
+    the control: GraphSAGE's reference called directly."""
+    ref_ = types.SimpleNamespace(**{**vars(sample), **vars(ref)})
+    ref_.no_tf32()
+    fanouts = list(cfg["fanouts"])
+    g = ref_.Graph(graph.indptr, graph.indices, graph.num_nodes, device)
+    feats = torch.as_tensor(feats_np, device=device)
+    w = ref_.weights_on(weights_np, device)
+    out = {"uncaptured": 0, "hops_invalid": 0, "feature_mismatch": 0,
+           "agg_err": 0.0, "embed_err": 0.0}
+    for seeds, result, records in items:
+        if not records:
+            out["uncaptured"] += 1
+            continue
+        seeds_t = torch.as_tensor(seeds)
+        lo = 0
+        for rec in records:
+            chunk = min(int(rec.hops[0].shape[0]), int(seeds_t.shape[0]) - lo)
+            out["hops_invalid"] += ref_.invalid_hops(
+                g, rec.hops, seeds_t[lo:lo + chunk], fanouts)
+            for k, (pos, got) in enumerate(zip(rec.feat_pos, rec.feat_rows)):
+                want = ref_.rows(feats, rec.hops[k][pos])
+                out["feature_mismatch"] += int(
+                    (got.to(device) != want).sum())
+            if rec.agg_pos is not None:
+                fan = fanouts[-1]
+                parents = rec.hops[-2][rec.agg_pos]
+                child = rec.hops[-1].view(-1, fan)[rec.agg_pos].reshape(-1)
+                want = ref_.fan_sums(feats, parents, child, fan)
+                gap = (rec.agg_rows.to(device) - want).abs().max()
+                out["agg_err"] = max(out["agg_err"], float(gap))
+            want = ref_.embed(w, feats, rec.hops, fanouts)[:chunk]
+            got = torch.as_tensor(result[lo:lo + chunk]).to(device)
+            out["embed_err"] = max(out["embed_err"],
+                                   float((got - want).abs().max()))
+            lo += chunk
+        if lo != int(seeds_t.shape[0]):
+            out["uncaptured"] += 1
+    return out
+
+
+@pytest.mark.parametrize("cell", ["tiny.mixed", "tiny.bulk"])
+def test_the_checks_match_the_old_call_path(tiny, monkeypatch, cell):
+    """On the sample a run captured, the checks read as the direct
+    GraphSAGE calls read them, and ``archs/sage``'s ``infer_fn`` is the
+    launcher's ``make_infer_fn(sage_from_numpy(...))`` bit for bit."""
+    from repro_torch.launch.serve import make_infer_fn
+    from repro_torch.models.gnn_basic import sage_from_numpy
+
+    got = {}
+    compare = check.compare
+
+    def keep(ref_, cfg, graph, feats, weights, items, device, **kw):
+        got["args"] = (cfg, graph, feats, weights, items)
+        return compare(ref_, cfg, graph, feats, weights, items, device,
+                       **kw)
+
+    monkeypatch.setattr(check, "compare", keep)
+    line, rows = _run(tiny, cell)
+    cfg, graph, feats, weights, items = got["args"]
+    assert any(recs for _, _, recs in items)
+    old = _old_compare(cfg, graph, feats, weights, items, CPU)
+    assert {n: v for n, v, _ in rows if n != "unanswered"} == \
+        {n: old[n] for n, _, _ in rows if n != "unanswered"}
+    fanouts = cfg["fanouts"]
+    new_fn = run.load(tiny[1], "archs", "sage").infer_fn(cfg, weights, CPU)
+    old_fn = make_infer_fn(sage_from_numpy(weights, device=CPU), fanouts)
+    feats_t = torch.as_tensor(feats)
+    for _, _, records in items:
+        for rec in records:
+            hop_feats = [sample.rows(feats_t, h) for h in rec.hops]
+            deep = None
+            if cfg["collect"] == "lookup_aggregate":
+                deep = sample.fan_sums(feats_t, rec.hops[-2], rec.hops[-1],
+                                       fanouts[-1])
+                hop_feats = hop_feats[:-1]
+            a = new_fn(hop_feats, rec.hops, deep_agg=deep)
+            b = old_fn(hop_feats, rec.hops, deep_agg=deep)
+            assert torch.equal(a, b)
 
 
 def _imports(path: Path) -> set:
