@@ -10,5 +10,9 @@ MODULE, WRAPPER = "repro_torch.core.feature_store", "gather_aggregate"
 BUILD = "gather_aggregate"
 # a substring of the kernel's name in the device trace
 TRACE_NAME = "gather_aggregate_kernel"
+# what in a configuration makes the serving path launch it: a
+# ``(key, value)`` pair, the key ``collect`` or ``arch``, written as a
+# literal (the harness reads it without importing this file)
+LAUNCHED_BY = ("collect", "lookup_aggregate")
 # least bytes of one call, from the wrapper's arguments
 least_bytes = costs.gather_aggregate_bytes

@@ -9,5 +9,9 @@ MODULE, WRAPPER = "repro_torch.core.feature_store", "tiered_gather"
 BUILD = "tiered_gather"
 # a substring of the kernel's name in the device trace
 TRACE_NAME = "tiered_gather_kernel"
+# what in a configuration makes the serving path launch it: a
+# ``(key, value)`` pair, the key ``collect`` or ``arch``, written as a
+# literal (the harness reads it without importing this file)
+LAUNCHED_BY = ("collect", "lookup_hops")
 # least bytes of one call, from the wrapper's arguments
 least_bytes = costs.tiered_gather_bytes

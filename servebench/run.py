@@ -18,9 +18,13 @@ configuration in ``servebench/configs/<config>.json``, its mix in
 ``servebench/archs/<arch>.py`` (its weights, the port's ``infer_fn``, the
 function the ``model`` span wraps, its FLOPs a seed and the ``collect``
 modes it takes) and ``servebench/reference/<arch>.py`` (its plain
-equations), every kernel the run builds, records and costs in
-``servebench/kernels/<kernel>.py``, and each per-layer metric's reader in
-``servebench/metrics/<metric>.py``. Exits 2, printing no result, when
+equations), each kernel in ``servebench/kernels/<kernel>.py`` (built,
+recorded and costed in the cells whose configuration's ``collect`` or
+``arch`` its ``LAUNCHED_BY`` names), and each per-layer metric's reader in
+``servebench/metrics/<metric>.py``. A cell imports only its own
+architecture and kernel files: of the others it reads ``COLLECTS`` and
+``LAUNCHED_BY`` as literals, so a file whose imports only a later
+program has stops no cell. Exits 2, printing no result, when
 there is no CUDA device (or fewer than the cell asks for), when the
 program is not in the checkout, or when JAX or the JAX package was loaded.
 """
@@ -31,7 +35,9 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
+import ast  # noqa: E402
 import dataclasses  # noqa: E402
+import functools  # noqa: E402
 import gc  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
@@ -97,11 +103,17 @@ def reader(bench_dir: Path, metric: str):
     return load(bench_dir, "metrics", metric).read
 
 
+def _stems(bench_dir: Path, folder: str) -> list:
+    return sorted(p.stem for p in (bench_dir / folder).glob("*.py"))
+
+
 def arch_of(cfg: dict, bench_dir: Path):
     """``(archs/<arch>.py, reference/<arch>.py)`` of the configuration's
-    ``arch``; stops when it names none of ``archs/`` or asks for a
-    ``collect`` the architecture does not take."""
-    known = sorted(p.stem for p in (bench_dir / "archs").glob("*.py"))
+    ``arch``; stops when it names none of ``archs/``, asks for a
+    ``collect`` the architecture does not take, or the program lacks the
+    function its ``MODEL_SPAN`` names (a model that a later program
+    brings): before any input is drawn."""
+    known = _stems(bench_dir, "archs")
     name = cfg.get("arch")
     if name not in known:
         raise SystemExit(f"configuration {cfg.get('name')!r}: arch "
@@ -111,13 +123,56 @@ def arch_of(cfg: dict, bench_dir: Path):
         raise SystemExit(f"configuration {cfg.get('name')!r}: arch {name!r} "
                          f"takes collect {list(arch.COLLECTS)}, not "
                          f"{cfg['collect']!r}")
+    module, fn = arch.MODEL_SPAN
+    try:
+        getattr(importlib.import_module(module), fn)
+    except (ImportError, AttributeError) as e:
+        raise SystemExit(f"configuration {cfg.get('name')!r}: arch {name!r} "
+                         f"serves {module}.{fn}, which the program lacks "
+                         f"({e})") from None
     return arch, load(bench_dir, "reference", name)
 
 
-def kernels(bench_dir: Path) -> dict:
-    """Every ``servebench/kernels/<kernel>.py`` by name."""
-    return {p.stem: load(bench_dir, "kernels", p.stem)
-            for p in sorted((bench_dir / "kernels").glob("*.py"))}
+def literal(path: Path, name: str):
+    """The literal that ``path`` assigns to ``name`` at its top level, read
+    without importing the file (which may import what the program lacks);
+    ``None`` where it assigns none."""
+    for node in ast.parse(path.read_text()).body:
+        if (isinstance(node, ast.Assign) and len(node.targets) == 1
+                and isinstance(node.targets[0], ast.Name)
+                and node.targets[0].id == name):
+            try:
+                return ast.literal_eval(node.value)
+            except ValueError:
+                raise SystemExit(f"{path.name}: {name} is not a literal: "
+                                 f"{ast.unparse(node.value)}") from None
+    return None
+
+
+def cell_kernels(cfg: dict, bench_dir: Path) -> dict:
+    """The ``servebench/kernels/<kernel>.py`` that ``cfg``'s serving path
+    launches, by name: those whose ``LAUNCHED_BY`` is ``("collect", c)``
+    or ``("arch", a)`` with the configuration's own ``c`` or ``a``. Stops
+    on a kernel file whose declaration is missing or names a key or value
+    that no file of ``archs/`` knows. Declarations and the architectures'
+    ``COLLECTS`` are read as literals (``literal``): only the cell's own
+    kernel files are imported, and no architecture's."""
+    archs = _stems(bench_dir, "archs")
+    known = {"collect": sorted({c for a in archs for c in literal(
+                 bench_dir / "archs" / f"{a}.py", "COLLECTS") or ()}),
+             "arch": archs}
+    chosen = {}
+    for name in _stems(bench_dir, "kernels"):
+        decl = literal(bench_dir / "kernels" / f"{name}.py", "LAUNCHED_BY")
+        if not (isinstance(decl, tuple) and len(decl) == 2
+                and decl[1] in known.get(decl[0], ())):
+            raise SystemExit(
+                f"kernel {name!r}: LAUNCHED_BY is {decl!r}, not "
+                + " or ".join(f"({k!r}, one of {v})"
+                              for k, v in known.items()))
+        if cfg.get(decl[0]) == decl[1]:
+            chosen[name] = load(bench_dir, "kernels", name)
+    return chosen
 
 
 def _free(dev: torch.device) -> None:
@@ -148,12 +203,14 @@ def log(msg: str) -> None:
 @dataclasses.dataclass
 class Prepared:
     """A cell's inputs and the program's stack built over them, with the
-    configuration's architecture (``archs/<arch>.py``) and its reference
-    (``reference/<arch>.py``)."""
+    configuration's architecture (``archs/<arch>.py``), its reference
+    (``reference/<arch>.py``) and the kernels its path launches
+    (``cell_kernels``)."""
 
     cfg: dict
     arch: object
     ref: object
+    kernels: dict
     graph: inputs.Graph
     feats: np.ndarray
     weights: dict
@@ -169,6 +226,7 @@ def prepare(cfg: dict, traffic: dict, seed: int, device: torch.device,
     from repro_torch.kernels.build import build
 
     arch, ref = arch_of(cfg, bench_dir)
+    kerns = cell_kernels(cfg, bench_dir)
     t = time.perf_counter()
 
     def phase(name: str) -> None:
@@ -178,8 +236,8 @@ def prepare(cfg: dict, traffic: dict, seed: int, device: torch.device,
         t = now
 
     if device.type == "cuda":
-        build(tuple(k.BUILD for k in kernels(bench_dir).values()))
-        phase("kernels")
+        build(tuple(k.BUILD for k in kerns.values()))
+        phase(f"kernels {sorted(kerns)}")
     graph = inputs.power_law_graph(cfg["nodes"], cfg["num_edges"],
                                    cfg["exponent"], seed, device)
     phase(f"graph ({graph.num_edges} edges)")
@@ -194,8 +252,8 @@ def prepare(cfg: dict, traffic: dict, seed: int, device: torch.device,
     # the window starts on the allocator's pool as calibration and the
     # lanes' warm-up left it: no empty_cache here
     gc.collect()
-    return Prepared(cfg, arch, ref, graph, feats, weights, law, capture,
-                    engine)
+    return Prepared(cfg, arch, ref, kerns, graph, feats, weights, law,
+                    capture, engine)
 
 
 def drive(prep: Prepared, traffic: dict, seconds: float,
@@ -235,6 +293,24 @@ def answers(prep: Prepared, res: loops.LoopResult, device: torch.device,
                          prep.weights, items, device, control=control)
 
 
+def roofline(red, kernels: dict, launch_bytes: dict, kernel: str,
+             hbm: float):
+    """``kernel``'s share of its HBM roofline, in %: the least bytes of its
+    first recorded launches over ``hbm`` bytes/s, over the device time of
+    as many of its launches in the reduced trace ``red``. ``None`` without
+    a trace, for a kernel the cell did not record, or where the trace
+    holds none of its launches."""
+    if red is None or kernel not in launch_bytes:
+        return None
+    evs = sorted((ts, dur) for n, ts, dur in red["kernels"]
+                 if kernels[kernel].TRACE_NAME in n)
+    k = min(len(evs), len(launch_bytes[kernel]))
+    dev_s = sum(d for _, d in evs[:k]) * 1e-6
+    if k == 0 or dev_s <= 0:
+        return None
+    return 100.0 * sum(launch_bytes[kernel][:k]) / hbm / dev_s
+
+
 def run_cell(bench: dict, name: str, seed: int, seconds: float,
              traced: bool, *, device: torch.device,
              bench_dir: Path = BENCH_DIR,
@@ -245,7 +321,7 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float,
     spec = cell_spec(bench, name, bench_dir)
     cfg, traffic = spec["cfg"], spec["traffic"]
     prep = prepare(cfg, traffic, seed, device, bench_dir)
-    arch, kerns = prep.arch, kernels(bench_dir)
+    arch, kerns = prep.arch, prep.kernels
 
     spans = launches = dtrace = None
     if traced:
@@ -301,20 +377,10 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float,
                     for k, rec in launches.items()}
         del launches
 
-        def roofline(kernel: str, hbm: float):
-            if red is None:
-                return None
-            evs = sorted((ts, dur) for n, ts, dur in red["kernels"]
-                         if kerns[kernel].TRACE_NAME in n)
-            k = min(len(evs), len(bytes_of[kernel]))
-            dev_s = sum(d for _, d in evs[:k]) * 1e-6
-            if k == 0 or dev_s <= 0:
-                return None
-            return 100.0 * sum(bytes_of[kernel][:k]) / hbm / dev_s
-
         ctx = {"summary": summary, "cfg": cfg, "trace": red,
                "span_ms": lambda n: spans.durations_ms(n, t0p, t1p),
-               "roofline": roofline, "served_seeds": served,
+               "roofline": functools.partial(roofline, red, kerns, bytes_of),
+               "served_seeds": served,
                "window_s": window_s, "latencies_ms": lat,
                "on_card": device.type == "cuda", "arch": arch}
         for m in spec["per_layer"]:

@@ -1,6 +1,7 @@
 """CPU tests of the serving benchmark: a tiny cell end to end, the
 reference against the port, the control and the planted faults failing,
-new configurations, mixes, metrics and architectures found by name, the
+new configurations, mixes, metrics, architectures and kernels found by
+name (a cell builds and records only the kernels its path launches), the
 import rules, and the yardstick's arithmetic. The card's test is marked
 ``cuda``.
 
@@ -27,7 +28,7 @@ for p in (str(ROOT), str(ROOT / "src")):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-from servebench import check, costs, inputs, run  # noqa: E402
+from servebench import check, costs, inputs, run, trace  # noqa: E402
 from servebench.reference import sage as ref, sample  # noqa: E402
 
 CPU = torch.device("cpu")
@@ -268,13 +269,17 @@ def test_new_files_are_found_by_name(tiny, tmp_path):
 TOY_ARCH = """\
 \"\"\"A toy one-layer model over the first two hops: tanh(x W_s + mean of
 the valid children's rows W_n + b), in its own torch ops.\"\"\"
+import importlib
+
 import torch
 
 from servebench import inputs
 
 COLLECTS = ("lookup_hops",)
-MODEL_SPAN = ("torch", "tanh")
+MODEL_SPAN = {span!r}
 FAULT = {fault!r}
+# the program's function the model hands its output to, or None
+OP = {op!r}
 
 
 def weights(cfg, seed, device):
@@ -295,7 +300,10 @@ def infer_fn(cfg, weights, device):
         m = (hop_ids[1] >= 0).float().view(x.shape[0], fan, 1)
         kids = hop_feats[1].view(x.shape[0], fan, -1)
         agg = (kids * m).sum(1) / m.sum(1).clamp_min(1.0)
-        return torch.tanh(x @ ws + agg @ wn + b) + FAULT
+        out = torch.tanh(x @ ws + agg @ wn + b) + FAULT
+        if OP is not None:
+            out = getattr(importlib.import_module(OP[0]), OP[1])(out)
+        return out
 
     return infer
 
@@ -331,6 +339,42 @@ def embed(w, feats, hops, fanouts, *, tf32=False):
 """
 
 
+# a kernel the program lacks (its wrapper, its source, its library) that
+# only the toy architecture launches
+TOY_KERNEL = """\
+\"\"\"``toy_mix``: what the toy model hands its output to.\"\"\"
+
+MODULE, WRAPPER = "repro_torch.models.gnn_basic", "toy_mix"
+BUILD = "toy_mix"
+TRACE_NAME = "toy_mix_kernel"
+LAUNCHED_BY = ("arch", "toy")
+
+
+def least_bytes(out):
+    return 2 * out.numel() * out.element_size()
+"""
+TOY_OP = ("repro_torch.models.gnn_basic", "toy_mix")
+
+
+def _add_toy(bench_dir: Path, *, fault: float = 0.0,
+             span: tuple = ("torch", "tanh"), op=None) -> None:
+    """The toy architecture and its reference, as files of ``bench_dir``."""
+    (bench_dir / "archs" / "toy.py").write_text(TOY_ARCH.format(
+        fault=fault, span=span, op=op))
+    (bench_dir / "reference" / "toy.py").write_text(TOY_REFERENCE)
+
+
+def _add_toy_cell(bench: dict, bench_dir: Path) -> str:
+    """A configuration of the toy architecture and its closed-loop cell."""
+    cfg = dict(_tiny_cfg("lookup_hops", _limits("products-sage3")),
+               name="toycfg", arch="toy", fanouts=[4, 3])
+    (bench_dir / "configs" / "toycfg.json").write_text(json.dumps(cfg))
+    bench["workloads"].append({"name": "toycfg.bulk", "config": "toycfg",
+                               "traffic": "tbulk", "chips": 1})
+    bench["end_to_end"][1]["workloads"].append("toycfg.bulk")
+    return "toycfg.bulk"
+
+
 @pytest.mark.parametrize("fault", [0.0, 1e-2], ids=["sound", "faulted"])
 def test_a_second_architecture_enters_by_new_files(tiny, fault):
     """A toy architecture added as files (its program side, its reference,
@@ -338,16 +382,9 @@ def test_a_second_architecture_enters_by_new_files(tiny, fault):
     with no edit of the harness; a fault planted in its ``infer_fn`` fails
     ``embed_err``."""
     bench, bench_dir = tiny
-    (bench_dir / "archs" / "toy.py").write_text(TOY_ARCH.format(
-        fault=fault))
-    (bench_dir / "reference" / "toy.py").write_text(TOY_REFERENCE)
-    cfg = dict(_tiny_cfg("lookup_hops", _limits("products-sage3")),
-               name="toycfg", arch="toy", fanouts=[4, 3])
-    (bench_dir / "configs" / "toycfg.json").write_text(json.dumps(cfg))
-    bench["workloads"].append({"name": "toycfg.bulk", "config": "toycfg",
-                               "traffic": "tbulk", "chips": 1})
-    bench["end_to_end"][1]["workloads"].append("toycfg.bulk")
-    line, rows = run.run_cell(bench, "toycfg.bulk", SEED, 1.0, False,
+    _add_toy(bench_dir, fault=fault)
+    cell = _add_toy_cell(bench, bench_dir)
+    line, rows = run.run_cell(bench, cell, SEED, 1.0, False,
                               device=CPU, bench_dir=bench_dir)
     assert set(line["metrics"]) == {"seeds_per_s", "setup_s"}
     failed = {n for n, v, lim in rows if v > lim}
@@ -355,19 +392,242 @@ def test_a_second_architecture_enters_by_new_files(tiny, fault):
     assert failed == ({"embed_err"} if fault else set()), line["checks"]
 
 
-@pytest.mark.parametrize("change, says", [
-    ({"arch": None}, "['sage']"),
-    ({"arch": "gat"}, "['sage']"),
-    ({"collect": "lookup_all"}, "['lookup_hops', 'lookup_aggregate']")],
-    ids=["no_arch", "unknown_arch", "collect_not_taken"])
+UNKNOWN_ARCH = "no_such_arch"
+
+
+@pytest.mark.parametrize("change, two_archs", [
+    ({"arch": None}, False),
+    ({"arch": UNKNOWN_ARCH}, False),
+    ({"collect": "lookup_all"}, False),
+    ({"arch": None}, True),
+    ({"arch": UNKNOWN_ARCH}, True),
+    ({"collect": "lookup_all"}, True)],
+    ids=["no_arch", "unknown_arch", "collect_not_taken",
+         "no_arch_two_archs", "unknown_arch_two_archs",
+         "collect_not_taken_two_archs"])
 def test_a_configuration_the_archs_cannot_serve_is_refused(tiny, change,
-                                                           says):
+                                                           two_archs):
+    """The refusal names the architectures that ``archs/`` holds, or the
+    ``collect`` modes the configuration's architecture takes, whichever
+    architecture files are there."""
     bench, bench_dir = tiny
+    if two_archs:
+        _add_toy(bench_dir)
+    archs = bench_dir / "archs"
+    assert not (archs / f"{UNKNOWN_ARCH}.py").exists()
+    known = sorted(p.stem for p in archs.glob("*.py"))
+    says = (f"arch {change['arch']!r} is not one of {known}"
+            if "arch" in change else
+            f"arch 'sage' takes collect "
+            f"{list(run.load(bench_dir, 'archs', 'sage').COLLECTS)}, "
+            f"not 'lookup_all'")
     spec = run.cell_spec(bench, "tiny.mixed", bench_dir)
     cfg = {k: v for k, v in dict(spec["cfg"], **change).items()
            if v is not None}
     with pytest.raises(SystemExit, match=re.escape(says)):
         run.prepare(cfg, spec["traffic"], SEED, CPU, bench_dir)
+
+
+@pytest.mark.parametrize("span", [
+    ("repro_torch.models.gnn_basic", "toy_layered"),
+    ("repro_torch.models.toy", "toy_layered")],
+    ids=["function_missing", "module_missing"])
+def test_a_model_the_program_lacks_stops_before_set_up(tiny, capsys, span):
+    """An architecture whose ``MODEL_SPAN`` names a function the program
+    lacks stops in ``arch_of``, naming it, before the graph is drawn."""
+    bench, bench_dir = tiny
+    _add_toy(bench_dir, span=span)
+    spec = run.cell_spec(bench, "tiny.mixed", bench_dir)
+    with pytest.raises(SystemExit, match=re.escape(".".join(span))):
+        run.prepare(dict(spec["cfg"], arch="toy"), spec["traffic"], SEED,
+                    CPU, bench_dir)
+    assert "graph" not in capsys.readouterr().err
+
+
+@pytest.fixture
+def toys(tiny):
+    """``tiny`` with the toy architecture (which hands its output to the
+    program's ``toy_mix``) and a kernel file for ``toy_mix`` that only the
+    toy architecture launches: its wrapper, its source and its library are
+    all missing from the program."""
+    from repro_torch.kernels.build import CSRC
+    from repro_torch.models import gnn_basic
+
+    bench, bench_dir = tiny
+    assert not hasattr(gnn_basic, "toy_mix")
+    assert not (CSRC / "toy_mix.cu").exists()
+    _add_toy(bench_dir, op=TOY_OP)
+    (bench_dir / "kernels" / "toy_mix.py").write_text(TOY_KERNEL)
+    return tiny
+
+
+@pytest.fixture
+def recorded(monkeypatch):
+    """Every kernel wrapper a traced run records launches of, by name, with
+    the arguments recorded."""
+    got = {}
+
+    class Spy(trace.Launches):
+        def __exit__(self, *exc):
+            got[self.attr] = self.args
+            return super().__exit__(*exc)
+
+    monkeypatch.setattr(trace, "Launches", Spy)
+    return got
+
+
+@pytest.mark.parametrize("cell, launched", [
+    ("tiny.mixed", "tiered_gather"), ("tiny.bulk", "gather_aggregate")])
+def test_a_kernel_the_cell_does_not_launch_is_left_alone(toys, recorded,
+                                                         cell, launched):
+    """With a kernel file beside the real ones whose wrapper and library
+    the program lacks, the tiny cells run traced and ``correct``, report
+    the metrics they reported before and record only their own kernel."""
+    line, _ = _run(toys, cell, traced=True)
+    assert line["correct"] is True, line["checks"]
+    if cell == "tiny.mixed":
+        assert {"routed_device_share", "p99_ms.host_paced"} <= \
+            set(line["metrics"]) <= {"routed_device_share",
+                                     "p99_ms.host_paced",
+                                     "service_p50_ms.device"}
+    else:
+        # no device on the CPU: rooflines, mfu and idle share are silent
+        assert set(line["metrics"]) == {"collect_ms"}
+    assert set(recorded) == {launched}
+    assert recorded[launched]
+
+
+def test_a_cell_selects_the_kernels_its_path_launches(toys):
+    bench, bench_dir = toys
+    _add_toy_cell(bench, bench_dir)
+
+    def selected(config):
+        cfg = run.load_json(bench_dir / "configs" / f"{config}.json")
+        return set(run.cell_kernels(cfg, bench_dir))
+
+    assert selected("tiny") == {"tiered_gather"}
+    assert selected("tinyagg") == {"gather_aggregate"}
+    assert selected("toycfg") == {"tiered_gather", "toy_mix"}
+
+
+def test_the_toy_cell_records_its_kernel(toys, recorded, monkeypatch):
+    """Once the program has ``toy_mix``, the toy architecture's cell
+    records its launches beside ``lookup_hops``' gather."""
+    from repro_torch.models import gnn_basic
+
+    monkeypatch.setattr(gnn_basic, "toy_mix", lambda out: out.clone(),
+                        raising=False)
+    bench, bench_dir = toys
+    cell = _add_toy_cell(bench, bench_dir)
+    line, _ = run.run_cell(bench, cell, SEED, 1.0, True, device=CPU,
+                           bench_dir=bench_dir)
+    assert line["correct"] is True, line["checks"]
+    assert set(recorded) == {"tiered_gather", "toy_mix"}
+    assert all(recorded.values())
+
+
+@pytest.mark.parametrize("decl, says", [
+    (None, "LAUNCHED_BY is None"),
+    (("arch", UNKNOWN_ARCH), f"LAUNCHED_BY is ('arch', {UNKNOWN_ARCH!r})"),
+    (("model", "toy"), "LAUNCHED_BY is ('model', 'toy')"),
+    ("lookup_hops", "LAUNCHED_BY is 'lookup_hops'")],
+    ids=["missing", "unknown_value", "unknown_key", "not_a_pair"])
+def test_a_kernel_declared_for_nothing_known_stops(toys, capsys, decl, says):
+    """A kernel file with no ``LAUNCHED_BY``, or one naming what no
+    architecture knows, stops every cell before set-up, naming the known
+    keys and values: the architectures that ``archs/`` holds and, among
+    the ``collect`` modes, those of ``sage``, whichever other
+    architecture files are there."""
+    bench, bench_dir = toys
+    archs = bench_dir / "archs"
+    assert not (archs / f"{UNKNOWN_ARCH}.py").exists()
+    known = sorted(p.stem for p in archs.glob("*.py"))
+    text = TOY_KERNEL.replace('LAUNCHED_BY = ("arch", "toy")\n',
+                              "" if decl is None
+                              else f"LAUNCHED_BY = {decl!r}\n")
+    (bench_dir / "kernels" / "toy_mix.py").write_text(text)
+    spec = run.cell_spec(bench, "tiny.mixed", bench_dir)
+    with pytest.raises(SystemExit) as stop:
+        run.prepare(spec["cfg"], spec["traffic"], SEED, CPU, bench_dir)
+    msg = str(stop.value)
+    assert msg.startswith(f"kernel 'toy_mix': {says}, not "), msg
+    assert msg.endswith(f" or ('arch', one of {known})"), msg
+    collects = re.search(r"\('collect', one of (\[[^]]*\])\)", msg)
+    assert collects, msg
+    assert set(run.load(bench_dir, "archs", "sage").COLLECTS) <= set(
+        ast.literal_eval(collects.group(1)))
+    assert "graph" not in capsys.readouterr().err
+
+
+# an architecture and its kernel whose files import what the program
+# lacks, as a later program's model would on the parent
+BROKEN_ARCH = """\
+from repro_torch.models.gnn_basic import no_such_model  # noqa: F401
+
+COLLECTS = ("lookup_hops", "lookup_fused")
+MODEL_SPAN = ("repro_torch.models.gnn_basic", "no_such_model")
+"""
+BROKEN_KERNEL = """\
+from repro_torch.core.no_such_module import attend  # noqa: F401
+
+MODULE, WRAPPER = "repro_torch.core.no_such_module", "attend"
+BUILD = "no_such_attend"
+TRACE_NAME = "no_such_attend_kernel"
+LAUNCHED_BY = ("arch", "broken")
+"""
+
+
+def test_files_the_program_cannot_import_leave_other_cells_alone(tiny,
+                                                                 recorded):
+    """An ``archs/`` file and a ``kernels/`` file that import what the
+    program lacks at their top level are read, not imported, by a cell of
+    another architecture: the tiny cells run traced and ``correct`` and
+    record only their own kernel; a kernel may name a ``collect`` that
+    only the new architecture takes."""
+    bench, bench_dir = tiny
+    (bench_dir / "archs" / "broken.py").write_text(BROKEN_ARCH)
+    (bench_dir / "kernels" / "broken_attend.py").write_text(BROKEN_KERNEL)
+    (bench_dir / "kernels" / "fused.py").write_text(BROKEN_KERNEL.replace(
+        '("arch", "broken")', '("collect", "lookup_fused")'))
+    for cell, launched in (("tiny.mixed", "tiered_gather"),
+                           ("tiny.bulk", "gather_aggregate")):
+        recorded.clear()
+        line, _ = _run(tiny, cell, traced=True)
+        assert line["correct"] is True, line["checks"]
+        assert set(recorded) == {launched}
+
+
+def test_a_declaration_that_is_not_a_literal_stops(toys):
+    """``LAUNCHED_BY`` is read without importing its file, so it has to
+    be a literal."""
+    bench, bench_dir = toys
+    (bench_dir / "kernels" / "toy_mix.py").write_text(TOY_KERNEL.replace(
+        'LAUNCHED_BY = ("arch", "toy")',
+        'LAUNCHED_BY = tuple(["arch", "toy"])'))
+    cfg = run.load_json(bench_dir / "configs" / "tiny.json")
+    with pytest.raises(SystemExit, match=re.escape(
+            "toy_mix.py: LAUNCHED_BY is not a literal: "
+            "tuple(['arch', 'toy'])")):
+        run.cell_kernels(cfg, bench_dir)
+
+
+def test_the_roofline_of_a_kernel_not_recorded_reads_none():
+    """The least bytes of the first recorded launches over the device time
+    of as many of the kernel's first launches in the trace; ``None`` for a
+    kernel the cell did not record, or without a trace."""
+    kerns = {k: run.load(BENCH_DIR, "kernels", k)
+             for k in ("tiered_gather", "gather_aggregate")}
+    red = {"kernels": [("void tiered_gather_kernel<16>", 30.0, 4.0),
+                       ("void gather_aggregate_kernel<float>", 5.0, 9.0),
+                       ("void tiered_gather_kernel<16>", 10.0, 2.0)]}
+    launch_bytes = {"tiered_gather": [3.35e6]}
+    # one recorded launch: the trace's first, 2 us, at 3.35 TB/s: 50%
+    assert run.roofline(red, kerns, launch_bytes, "tiered_gather",
+                        3.35e12) == pytest.approx(50.0)
+    assert run.roofline(red, kerns, launch_bytes, "gather_aggregate",
+                        3.35e12) is None
+    assert run.roofline(None, kerns, launch_bytes, "tiered_gather",
+                        3.35e12) is None
 
 
 def test_sage_draws_the_weights_inputs_draws():
